@@ -1,0 +1,9 @@
+"""repro_torch.core — the LCMP integer decision core as torch ops.
+
+  tables : control-plane bootstrap vectors (Fig. 3)
+  pathq  : Alg. 1/2 + Eq. 2 path-quality scores
+  cong   : Q/T/D on-switch congestion estimator (Eqs. 3-5)
+  select : Eq. 1 fused cost + diversity-preserving selection (§3.4)
+
+Every function is integer-only and bit-exact with ``repro.core``.
+"""

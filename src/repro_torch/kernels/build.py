@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source has a plain C interface and is compiled by one
+``nvcc`` call into its own shared library under ``build/kernels/`` at the
+root of the checkout, then loaded with ``ctypes``. All sources are
+compiled at once, one ``nvcc`` process each. A library's file name
+carries a hash of its source and flags, so a changed source rebuilds and
+an unchanged one is reused. Nothing here runs at import: the first
+launch, or ``build_all()``, builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from typing import Dict
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))))
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
+
+SOURCES = {"cong_update": "cong_update.cu", "lcmp_decide": "lcmp_decide.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# C signatures of the extern "C" launchers (see csrc/*.cu)
+ARGTYPES = {
+    "cong_update_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "lcmp_decide_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    path = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def ptxas_info(log: str) -> Dict[str, int]:
+    """Registers and spill bytes from an ``-Xptxas -v`` log (one kernel
+    per source)."""
+    regs = re.findall(r"Used (\d+) registers", log)
+    stores = re.findall(r"(\d+) bytes spill stores", log)
+    loads = re.findall(r"(\d+) bytes spill loads", log)
+    return {"registers": int(regs[-1]) if regs else -1,
+            "spill_stores": int(stores[-1]) if stores else -1,
+            "spill_loads": int(loads[-1]) if loads else -1}
+
+
+def build_all(force: bool = False) -> Dict[str, dict]:
+    """Compile every source whose library is missing (every source with
+    ``force``), one ``nvcc`` each, all started together. Returns per
+    kernel: seconds, whether it was cached, and the registers and spills
+    ptxas reported."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in SOURCES:
+        lib = _lib_path(name)
+        if os.path.exists(lib) and not force:
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    failed = {}
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed[name] = log
+            continue
+        with open(lib + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"--- {n}\n{log}" for n, log in failed.items()))
+    seconds = time.perf_counter() - t0
+    out = {}
+    for name in SOURCES:
+        with open(_lib_path(name) + ".log") as f:
+            info = ptxas_info(f.read())
+        out[name] = dict(info, cached=name not in procs, seconds=seconds)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not os.path.exists(path):
+            build_all()
+        lib = ctypes.CDLL(path)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ARGTYPES[f"{name}_launch"]
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -1,0 +1,35 @@
+"""Public wrappers of the port's kernels (counterpart of
+``repro/kernels/ops.py``), with the same signatures as the plain versions
+in ``ref.py``. Each wrapper runs the plain version for CPU tensors and
+its CUDA kernel for CUDA tensors; what the kernel does not take (on the
+card, ``lcmp_decide`` candidate sets wider than 8) raises.
+"""
+from __future__ import annotations
+
+from repro_torch.core.cong import CongParams
+from repro_torch.core.select import SelectParams
+from repro_torch.kernels import cong_update as _cong
+from repro_torch.kernels import lcmp_decide as _decide
+
+
+def lcmp_decide(flow_ids, c_path, c_cong, valid, params=None):
+    params = params or SelectParams()
+    return _decide.lcmp_decide(flow_ids, c_path, c_cong, valid, params)
+
+
+def cong_update(state, queue_cells, now_us, tables, params=None,
+                hist_c=None, slot=0):
+    params = params or CongParams()
+    return _cong.cong_update(state, queue_cells, now_us, tables, params,
+                             hist_c, slot)
+
+
+def counts() -> dict:
+    """Kernel launches since the last reset."""
+    return {"cong_update": _cong.cong_update.launches,
+            "lcmp_decide": _decide.lcmp_decide.launches}
+
+
+def reset_counts() -> None:
+    _cong.cong_update.launches = 0
+    _decide.lcmp_decide.launches = 0

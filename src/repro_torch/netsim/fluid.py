@@ -1,0 +1,96 @@
+"""Flow-level fluid simulator (counterpart of ``repro/netsim/fluid.py``),
+as a host loop over an eager PyTorch step.
+
+The model is the reference's: flows are routed at arrival and pinned,
+share links max-min-proportionally (each link scales its flows by
+``min(1, cap/offered)``), per-link byte queues integrate overload, the
+DCQCN rate law reacts to RTT-delayed queue signals from the history
+rings, and the LCMP switch runs inside the loop (``monitor_tick`` ->
+``kernels.cong_update``; arrivals -> ``decide`` ->
+``kernels.lcmp_decide``). The reference scans ``make_step`` under
+``jax.jit``; here ``run`` calls the step once per ``dt`` from Python.
+The step mutates the state's rings and registers in place and returns
+the new state.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.netsim.engine import (  # noqa: F401  (build & co. re-exported)
+    HIST, SimArrays, SimConfig, SimState, _cc_update, _route_arrivals,
+    attach_link_caps, build, check_slice, ctrl_tick, monitor_tick)
+
+
+def make_step(ar: SimArrays, cfg: SimConfig):
+    """``step(st, t) -> st`` for one ``dt`` of the fluid model."""
+    check_slice(cfg)
+    L = ar.link_cap.shape[0]
+    dt = float(cfg.dt_us)
+    q_max = float(cfg.buffer_bytes * cfg.cap_scale)
+
+    def step(st: SimState, t: int) -> SimState:
+        # 1) switch monitor tick + 1b) control-plane refresh
+        st = monitor_tick(t, st, ar, cfg)
+        st = ctrl_tick(t, st, ar, cfg)
+
+        # 2) arrivals + routing decisions (the herd batch)
+        st = _route_arrivals(t, st, ar, cfg)
+
+        # 3) offered load per link (the reference's segment_sum)
+        pf = st.flow_path
+        links_f = ar.path_links[torch.clamp_min(pf, 0)]         # (F,H)
+        links_ok = (links_f >= 0) & st.active[:, None] & (pf >= 0)[:, None]
+        lidx = torch.clamp_min(links_f, 0)
+        contrib = torch.where(links_ok, st.rate[:, None], 0.0)
+        offered = torch.zeros((L,), dtype=torch.float32,
+                              device=contrib.device)
+        offered.index_add_(0, lidx.reshape(-1), contrib.reshape(-1))
+
+        # 4) per-link share factor and queue integration
+        cap = torch.where(st.link_alive, ar.link_cap, 1e-9)
+        factor_l = torch.clamp_max(cap / torch.clamp_min(offered, 1e-9), 1.0)
+        served = torch.minimum(offered, cap)
+        q = torch.clamp(st.q_bytes + (offered - cap) * dt, 0.0, q_max)
+        util = offered / cap
+        hslot = t % HIST
+        st.hist_q[:, hslot] = q
+        st.hist_u[:, hslot] = util
+        st = dataclasses.replace(
+            st, q_bytes=q,
+            u_ewma=st.u_ewma * 0.99 + 0.01 * torch.clamp_max(util, 1.0),
+            serv_bytes=st.serv_bytes + served * dt)
+
+        # 5) CC rate update from delayed signals
+        st = _cc_update(t, st, ar, cfg, pf, links_f, links_ok)
+
+        # 6) drain flows at the bottleneck-shared rate
+        f_factor = torch.where(links_ok, factor_l[lidx], 1.0).amin(-1)
+        send = torch.where(st.active, st.rate * f_factor, 0.0)
+        remaining = st.remaining - send * dt
+
+        newly_done = st.active & (remaining <= 0)
+        # completion: propagation + residual queue wait on the path
+        qw_now = torch.where(links_ok, q[lidx] / ar.link_cap[lidx],
+                             0.0).sum(-1)
+        prop = ar.path_prop[torch.clamp_min(pf, 0)].to(torch.float32)
+        fct = ((t + 1) * dt - ar.f_arr_us + prop
+               + 0.5 * (st.extra_wait + qw_now))
+        return dataclasses.replace(
+            st,
+            remaining=torch.clamp_min(remaining, 0.0),
+            active=st.active & ~newly_done,
+            done=st.done | newly_done,
+            fct_us=torch.where(newly_done, fct, st.fct_us))
+
+    return step
+
+
+def run(arrs: SimArrays, state: SimState, cfg: SimConfig) -> SimState:
+    """The whole horizon -> final state. ``state`` is consumed: its rings
+    and registers are updated in place."""
+    step = make_step(arrs, cfg)
+    for t in range(cfg.num_steps):
+        state = step(state, t)
+    return state

@@ -15,3 +15,9 @@ try:
     import hypothesis  # noqa: F401
 except ModuleNotFoundError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "_stubs"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels of repro_torch); "
+        "the test skips itself when torch.cuda.is_available() is false")

@@ -1,0 +1,218 @@
+"""Port parity of the kernel modules.
+
+On the CPU, ``repro_torch.kernels.ops`` runs the plain versions; they
+must equal the JAX package's Pallas kernels (interpret mode, as
+tests/test_kernels.py runs them) and its ``ref`` oracles bit for bit.
+The tests marked ``cuda`` hold the hand-written CUDA kernels against the
+plain versions on the card; they skip themselves without one. The JAX
+package is imported by the ``jref`` fixture only, so the card tests also
+run on a GPU machine without JAX (``pytest -m cuda``).
+"""
+import dataclasses
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.cong import CongParams, CongState
+from repro_torch.core.select import SelectParams
+from repro_torch.core.tables import bootstrap_tables
+from repro_torch.kernels import ops, ref
+
+REG_FIELDS = ("queue_cur", "queue_prev", "trend", "dur_cnt", "last_sample")
+HASH_EDGES = [0, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 1]
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX package's kernel entry points and core types."""
+    import jax.numpy as jnp
+
+    from repro.core import cong, select, tables
+    from repro.kernels import ops as rops
+    from repro.kernels import ref as rref
+    return types.SimpleNamespace(jnp=jnp, cong=cong, select=select,
+                                 tables=tables, ops=rops, ref=rref)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _eq(got, want, what=""):
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got, np.asarray(want).astype(got.dtype),
+                                  err_msg=what)
+
+
+# ---------------------------------------------------------------- cong_update
+def _cong_world(n_ports, seed, buffer_bytes=10**9):
+    rng = np.random.default_rng(seed)
+    rates = rng.choice([25, 40, 100, 200, 400], n_ports).tolist()
+    return rng, rates, dict(buffer_bytes=buffer_bytes, sample_interval_us=200)
+
+
+@pytest.mark.parametrize("params", [{}, dict(w_ql=1, w_tl=2, w_dp=1,
+                                             ewma_k=2, dur_shift=1)])
+@pytest.mark.parametrize("n_ports", [1, 5, 24, 152, 400])
+def test_cong_update_matches_pallas_and_ref(jref, n_ports, params):
+    jnp = jref.jnp
+    rng, rates, kw = _cong_world(n_ports, n_ports)
+    r_tb = jref.tables.bootstrap_tables(rates, **kw)
+    p_tb = bootstrap_tables(rates, device="cpu", **kw)
+    rp, pp = jref.cong.CongParams(**params), CongParams(**params)
+    r_st, p_st = jref.cong.CongState.init(n_ports), CongState.init(n_ports)
+    ring = torch.full((n_ports, 16), -7, dtype=torch.int32)   # a short hist_c
+    launches = ops.counts()["cong_update"]
+    for tick in range(6):
+        hi = 1_000_000 if tick % 3 < 2 else 100    # drains: negative trends
+        q = rng.integers(0, hi, n_ports).astype(np.int32)
+        k_st, k_cc = jref.ops.cong_update(r_st, jnp.asarray(q), tick * 200,
+                                          r_tb, rp)
+        o_st, o_cc = jref.ref.cong_update_ref(r_st, jnp.asarray(q), tick * 200,
+                                              r_tb, rp)
+        p_st, p_cc = ops.cong_update(p_st, torch.from_numpy(q), tick * 200,
+                                     p_tb, pp, hist_c=ring, slot=tick)
+        _eq(p_cc, k_cc, "c_cong vs pallas")
+        _eq(p_cc, o_cc, "c_cong vs ref")
+        _eq(ring[:, tick], k_cc, "hist_c slot")
+        for f in REG_FIELDS[:4]:
+            _eq(getattr(p_st, f), getattr(k_st, f), f)
+        _eq(p_st.last_sample, o_st.last_sample, "last_sample")
+        r_st = o_st
+    assert (ring[:, 6:] == -7).all()        # other slots untouched
+    assert ops.counts()["cong_update"] == launches   # plain version: no launch
+
+
+# ---------------------------------------------------------------- lcmp_decide
+def _decide_inputs(seed, F, P):
+    rng = np.random.default_rng(seed)
+    fids = rng.integers(0, 1 << 32, F).astype(np.uint32)
+    fids[:min(F, len(HASH_EDGES))] = HASH_EDGES[:F]
+    c_path = rng.integers(0, 256, (F, P)).astype(np.int32)
+    c_cong = rng.integers(0, 256, (F, P)).astype(np.int32)
+    valid = rng.random((F, P)) < 0.8
+    if F > 2:
+        valid[F // 2] = False                               # none valid
+        c_cong[F - 1] = rng.integers(230, 256, P)           # fallback
+    return fids, c_path, c_cong, valid
+
+
+def _torch(fids, c_path, c_cong, valid, dev="cpu"):
+    return (torch.from_numpy(fids.astype(np.int64)).to(dev),
+            torch.from_numpy(c_path).to(dev), torch.from_numpy(c_cong).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.parametrize("F", [1, 9, 24, 300])
+@pytest.mark.parametrize("P", [2, 3, 5, 8])
+def test_lcmp_decide_matches_pallas_and_ref(jref, F, P):
+    inp = _decide_inputs(F * 31 + P, F, P)
+    want = jref.ops.lcmp_decide(*[jref.jnp.asarray(x) for x in inp])
+    np.testing.assert_array_equal(np.asarray(want),
+                                  np.asarray(jref.ref.lcmp_decide_ref(*inp)))
+    got = ops.lcmp_decide(*_torch(*inp))
+    assert got.dtype == torch.int32
+    _eq(got, want)
+    _eq(ref.lcmp_decide_ref(*_torch(*inp)), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_lcmp_decide_param_sweep(jref, seed):
+    kw = [dict(alpha=1, beta=1), dict(alpha=1, beta=3),
+          dict(alpha=3, beta=1, cong_fallback=100),
+          dict(alpha=2, beta=2, keep_num=3)][seed]
+    inp = _decide_inputs(seed, 256, 6)
+    want = jref.ops.lcmp_decide(*[jref.jnp.asarray(x) for x in inp],
+                                jref.select.SelectParams(**kw))
+    _eq(ops.lcmp_decide(*_torch(*inp), SelectParams(**kw)), want)
+
+
+def test_lcmp_decide_wide_sets_run_the_plain_version_on_cpu(jref):
+    ops.reset_counts()
+    inp = _decide_inputs(7, 64, 10)
+    want = jref.ref.lcmp_decide_ref(*inp)
+    _eq(ops.lcmp_decide(*_torch(*inp)), want)
+    assert ops.counts() == {"cong_update": 0, "lcmp_decide": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    inp = [x.to("meta") for x in _torch(*_decide_inputs(0, 4, 4))]
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.lcmp_decide(*inp)
+    tb = bootstrap_tables([100] * 3, device="cpu")
+    st = CongState.init(3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.cong_update(st, torch.zeros(3, dtype=torch.int32, device="meta"),
+                        0, tb)
+
+
+# ------------------------------------------------------- on the card (cuda)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ports", [24, 152, 1 << 20])
+def test_cuda_cong_update_matches_plain(cuda, n_ports):
+    rng, rates, kw = _cong_world(n_ports, 1)
+    tb = bootstrap_tables(rates, device=cuda, **kw)
+    st_k, st_p = CongState.init(n_ports, cuda), CongState.init(n_ports, cuda)
+    hist = torch.zeros((n_ports, 8), dtype=torch.int32, device=cuda)
+    before = ops.counts()["cong_update"]
+    for tick in range(5):
+        hi = 1_000_000 if tick % 3 < 2 else 100
+        q = torch.from_numpy(rng.integers(0, hi, n_ports).astype(np.int32)).to(cuda)
+        st_k, cc_k = ops.cong_update(st_k, q, tick * 200, tb, hist_c=hist,
+                                     slot=tick)
+        st_p, cc_p = ref.cong_update_ref(st_p, q, tick * 200, tb)
+        torch.cuda.synchronize()
+        assert torch.equal(cc_k, cc_p)
+        assert torch.equal(hist[:, tick], cc_p)
+        for f in dataclasses.fields(CongState):
+            assert torch.equal(getattr(st_k, f.name), getattr(st_p, f.name)), f.name
+    assert ops.counts()["cong_update"] == before + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,P", [(9, 8), (24, 8)] + [(1 << 20, p) for p in range(2, 9)])
+def test_cuda_lcmp_decide_matches_plain(cuda, F, P):
+    inp = _torch(*_decide_inputs(F + P, F, P), dev=cuda)
+    before = ops.counts()["lcmp_decide"]
+    got = ops.lcmp_decide(*inp)
+    want = ref.lcmp_decide_ref(*inp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.counts()["lcmp_decide"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_check_inputs(cuda):
+    fid, cp, cc, vd = _torch(*_decide_inputs(0, 16, 4), dev=cuda)
+    with pytest.raises(ValueError, match="c_cong"):
+        ops.lcmp_decide(fid, cp, cc.to(torch.int64), vd)
+    with pytest.raises(ValueError, match="valid"):
+        ops.lcmp_decide(fid, cp, cc, vd.t().contiguous().t())
+    tb = bootstrap_tables([100] * 4, device=cuda, num_levels=8)
+    with pytest.raises(ValueError, match="num_levels"):
+        ops.cong_update(CongState.init(4, cuda),
+                        torch.zeros(4, dtype=torch.int32, device=cuda), 0, tb)
+
+
+@pytest.mark.cuda
+def test_cuda_lcmp_decide_refuses_wide_sets(cuda):
+    inp = _torch(*_decide_inputs(3, 16, 9), dev=cuda)
+    with pytest.raises(ValueError, match="P <= 8"):
+        ops.lcmp_decide(*inp)
+
+
+@pytest.mark.cuda
+def test_cuda_empty_inputs_launch_nothing(cuda):
+    before = ops.counts()
+    got = ops.lcmp_decide(*_torch(*_decide_inputs(0, 0, 8), dev=cuda))
+    assert got.shape == (0,)
+    tb = bootstrap_tables([], device=cuda)
+    st, cc = ops.cong_update(CongState.init(0, cuda),
+                             torch.zeros(0, dtype=torch.int32, device=cuda), 0, tb)
+    assert cc.shape == (0,)
+    assert ops.counts() == before
