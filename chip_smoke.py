@@ -7,9 +7,9 @@ and, last, ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the script exits non-zero and prints no result line. Phases:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: both CUDA kernels compiled for sm_90a from ``src/repro_torch/
-   kernels/csrc`` (one nvcc each, in parallel), with ptxas registers and
-   spills;
+2. build: the three CUDA sources compiled for sm_90a from
+   ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel), with
+   ptxas registers and spills;
 3. kernel_check: each kernel against its plain PyTorch version on the
    card, bit for bit, at the main path's shapes (testbed8 and wan2000)
    and at bulk shapes, with CUDA-event times and byte bounds; a
@@ -22,11 +22,23 @@ the script exits non-zero and prints no result line. Phases:
    wall and device-busy time per step, idle share, kernels per step;
 6. device_vs_cpu: testbed8 lcmp run on the card and on the CPU (plain
    versions) must route the same flows the same way;
-then the ``kernels`` summary line and the result line.
+7. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
+   cut to 4 layers, one 4096-token sequence per pod, 2 pods on the card):
+   3 steps with the int8 wire, then 1 f32-wire step from the state after
+   step 2; the int8 gradient against the exact pod mean block by block,
+   the route binding and wire bytes, the qsr launches, the two paths'
+   parameters against AdamW's bound; time split, tokens/s, peak memory;
+8. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card and
+   on the CPU from the same weights and batch;
+then the ``kernels`` summary line and the result line. Phase 3 also
+holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
+for bit, at 1024, 2^16 and 2^24 elements and at the train phase's two
+wire-leg sizes.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,6 +67,23 @@ REFERENCE = {("testbed8", "lcmp"): (13.27, 87.80, 3124, 3134),
 P50_BAND, P99_BAND, COMPLETED_BAND = 0.03, 0.10, 0.01
 BULK = 1 << 20
 HASH_EDGES = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+
+# The train phase: qwen3-4b (configs/qwen3_4b.py) at full width, with the
+# depth cut from 36 layers to 4 and train_4k's global batch of 256
+# sequences cut to one 4096-token sequence per pod, so that two pods'
+# gradients, the AdamW state and the int8 wire fit one card.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_PODS = 4, 4096, 2
+# After one step from the same state the int8 wire's noise moves a
+# parameter beyond float32 rounding only where the noise is comparable to
+# its gradient: 1.5% of elements at the train size on the H100, 5.9% at
+# the smoke size on the CPU. A wire that misplaces blocks, drops a pod or
+# scales one block in 7 wrongly moves 45-84% of them at the smoke size
+# (tests/test_torch_train.py, test_chip_smoke_train_checks_catch_a_broken_wire).
+FAR_SHARE = 0.10
+# bytes an element the qsr kernels must move: quant reads 4 B of x and
+# 4 B of bits and writes 1 B of q; dequant reads 1 B and writes 4 B;
+# each adds a 4-byte scale per 1024 elements
+QSR_BYTES = {"qsr_int8": 9, "qsr_dequant": 5}
 
 
 def emit(obj) -> None:
@@ -251,7 +280,87 @@ def refuses_wide_sets(dev) -> bool:
     return False
 
 
+def train_config():
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("qwen3_4b"), n_layers=TRAIN_LAYERS)
+
+
+def qsr_bound(name: str, n: int) -> dict:
+    return bound(QSR_BYTES[name] * n + 4 * (n // 1024))
+
+
+def qsr_inputs(dev, n: int, seed: int):
+    """x: normal values, each 1024-block scaled by 1e-3, 1 or 100; block
+    0 zero; in block 1 one value at -amax and one at +amax. bits: the
+    wire's own counter stream."""
+    from repro_torch.dist import compress
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn(n, generator=gen, device=dev)
+    pick = torch.randint(0, 3, (n // 1024,), generator=gen, device=dev)
+    mag = torch.tensor([1e-3, 1.0, 100.0], device=dev)[pick]
+    x = (x.view(-1, 1024) * mag[:, None]).view(-1)
+    x[:1024] = 0.0
+    if n >= 2048:
+        a = float(x[1024:2048].abs().max()) * 2
+        x[1024 + 5], x[1024 + 9] = -a, a
+    return x, compress.rand_bits(n, seed, salt=1, device=dev)
+
+
+def check_qsr(dev, n: int, label: str, iters: int):
+    """Both qsr kernels against their plain versions at ``n`` elements:
+    identical q, scales and dequantized values; then their times."""
+    from repro_torch.kernels import ops, ref
+    x, bits = qsr_inputs(dev, n, n % 1009)
+    q, s = ops.qsr_int8(x, bits)
+    qp, sp = ref.qsr_int8_ref(x, bits)
+    y = ops.qsr_dequant(q, s)
+    yp = ref.qsr_dequant_ref(qp, sp)
+    torch.cuda.synchronize()
+    q_err = 0 if torch.equal(q, qp) else int((q.int() - qp.int()).abs().max())
+    s_err = float((s - sp).abs().max())
+    y_err = 0.0 if torch.equal(y, yp) else float((y - yp).abs().max())
+    require(q_err == 0 and s_err == 0, f"qsr_int8 {label}: kernel equals plain "
+            f"(q err {q_err}, scale err {s_err})")
+    require(y_err == 0, f"qsr_dequant {label}: kernel equals plain (err {y_err})")
+    require(bool((q[:1024] == 0).all()) and float(s[0]) == 0.0,
+            f"qsr_int8 {label}: a zero block gives q = 0 and scale 0")
+    if n >= 2048:
+        require(int(q[1024 + 5]) in (-127, -126) and int(q[1024 + 9]) in (126, 127),
+                f"qsr_int8 {label}: values at -amax and +amax at the clip edge")
+    del qp, sp, y, yp
+    tq = timings(lambda: ops.qsr_int8(x, bits),
+                 lambda: ref.qsr_int8_ref(x, bits), iters)
+    td = timings(lambda: ops.qsr_dequant(q, s),
+                 lambda: ref.qsr_dequant_ref(q, s), iters)
+    quant = dict(shape=label, N=n, max_abs_err=q_err, scale_err=s_err, **tq,
+                 **qsr_bound("qsr_int8", n))
+    dequant = dict(shape=label, N=n, max_abs_err=y_err, **td,
+                   **qsr_bound("qsr_dequant", n))
+    return quant, dequant
+
+
+def qsr_unbiased(dev) -> float:
+    """Stochastic rounding's mean over 64 seeds (|mean - x| <= 2e-3, as
+    the reference's kernel test holds it)."""
+    from repro_torch.dist import compress
+    from repro_torch.kernels import ops
+    n = 2048
+    x = torch.zeros(n, device=dev)
+    x[1024:] = 0.3
+    acc = torch.zeros(n, dtype=torch.float64, device=dev)
+    for seed in range(64):
+        q, s = ops.qsr_int8(x, compress.rand_bits(n, seed, device=dev))
+        acc += ops.qsr_dequant(q, s).double()
+    acc /= 64
+    require(bool((acc[:1024] == 0).all()), "qsr: zero block stays zero")
+    return float((acc[1024:] - 0.3).abs().max())
+
+
 def phase_kernel_check(dev, shapes) -> dict:
+    from repro_torch.dist import lcmp_collectives as lc
     cong, decide = [], []
     for name, s in shapes.items():
         cong.append(check_cong_update(dev, s["tables"], f"{name} N={s['L']}", 200))
@@ -260,11 +369,24 @@ def phase_kernel_check(dev, shapes) -> dict:
     cong.append(check_cong_update(dev, bulk_tables(dev, BULK), f"bulk N={BULK}", 20))
     for P in range(2, 9):
         decide.append(check_lcmp_decide(dev, BULK, P, f"bulk F={BULK} P={P}", 20))
+    leg1, leg2 = lc.int8_leg_sizes(train_config().param_count(), TRAIN_PODS)
+    quant, dequant = [], []
+    for n, label, iters in ((leg1, f"train leg 1 N={leg1}", 3),
+                            (leg2, f"train leg 2 N={leg2}", 5),
+                            (1024, "N=1024", 200), (1 << 16, "N=2^16", 200),
+                            (1 << 24, "N=2^24", 20)):
+        qr, dr = check_qsr(dev, n, label, iters)
+        quant.append(qr)
+        dequant.append(dr)
+        torch.cuda.empty_cache()
     out = {"phase": "kernel_check", "library_ms": None,
            "cong_update": cong, "lcmp_decide": decide,
+           "qsr_int8": quant, "qsr_dequant": dequant,
+           "qsr_unbiased_max_err": qsr_unbiased(dev),
            "lcmp_decide_refuses_p9": refuses_wide_sets(dev)}
     emit(out)
     require(out["lcmp_decide_refuses_p9"], "lcmp_decide raises on P > 8")
+    require(out["qsr_unbiased_max_err"] <= 2e-3, "qsr: stochastic rounding unbiased")
     return out
 
 
@@ -402,7 +524,273 @@ def phase_device_vs_cpu(dev) -> dict:
     return out
 
 
-def kernel_summary(checks: dict, runs: dict) -> dict:
+def adam_bound(cfg, t: int) -> float:
+    """A bound on |m_hat / (sqrt(v_hat) + eps)| after t AdamW steps,
+    whatever the gradients: by Cauchy-Schwarz, |m_t| <= (1 - b1)
+    sqrt(sum_k (b1^2/b2)^k) sqrt(v_t / (1 - b2)), then the bias
+    corrections. With b1^2 <= b2 it is about 1 (1 exactly at t = 1)."""
+    r = cfg.b1 ** 2 / cfg.b2
+    return ((1 - cfg.b1) * math.sqrt(1 - cfg.b2 ** t)
+            / ((1 - cfg.b1 ** t) * math.sqrt(1 - cfg.b2))
+            * math.sqrt((1 - r ** t) / (1 - r)))
+
+
+def params_within(a, b, bound: float, dev) -> tuple:
+    """(max |a - b|, share of elements beyond one float32 rounding of
+    the update, whether every element is within ``bound`` plus one
+    rounding of |b|) over two parameter trees, compared on ``dev``."""
+    from repro_torch.dist.lcmp_collectives import tree_flatten
+    worst, far, total, ok = 0.0, 0, 0, True
+    for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]):
+        x, y = x.detach().to(dev), y.detach().to(dev)
+        d = (x - y).abs()
+        ulp = 2.4e-7 * (y.abs() + bound)    # float32 rounding of p and of the update
+        worst = max(worst, float(d.max()))
+        ok &= bool((d <= bound + ulp).all())
+        far += int((d > 2e-7 + ulp).sum())
+        total += d.numel()
+    return worst, far / total, ok
+
+
+def int8_block_errors(reduced, grads, chunk: int = 1 << 24) -> tuple:
+    """Per 1024-element scale block of the int8-reduced gradient
+    ``reduced`` (M,) against the exact pod mean of ``grads`` (n, M):
+    (the largest error over the block's own scale, where that scale is
+    nonzero; whether every block is within 2.1 of its scale). The scale
+    is the largest |g| of the block over the pods / 127. Each wire leg
+    errs by under one step of its own block (leg 1's partial mean by the
+    mean of the pods' steps, leg 2 by the mean's step, whose amax is at
+    most the pods'), so the error is under 2 scales. Chunks of
+    ``chunk`` elements keep the temporaries small at the train size."""
+    worst, ok, M = 0.0, True, reduced.numel()
+    for o in range(0, M, chunk):
+        g, r = grads[:, o:o + chunk], reduced[o:o + chunk]
+        err = (r - g.mean(0)).abs()
+        amax = g.abs().amax(0)
+        pad = -err.numel() % 1024
+        err = torch.nn.functional.pad(err, (0, pad)).view(-1, 1024).amax(1)
+        scale = torch.nn.functional.pad(amax, (0, pad)).view(-1, 1024).amax(1) / 127
+        ok &= bool((err <= 2.1 * scale).all())
+        nz = scale > 0
+        if nz.any():
+            worst = max(worst, float((err[nz] / scale[nz]).max()))
+    return worst, ok
+
+
+def qsr_device_ms(prof) -> dict:
+    """Device ms of each qsr kernel, and the top device kernels, in a
+    profiled step."""
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    own = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n)
+           for k in ("qsr_int8", "qsr_dequant")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"qsr_device_ms": own, "device_busy_ms": sum(by_name.values()),
+            "kernels": len(kern), "top_device_ms": {n[:90]: v for n, v in top}}
+
+
+def phase_train(dev) -> dict:
+    """The multi-pod LCMP train step at qwen3-4b's full width on the card:
+    2 pods, 3 steps over the int8 wire, then one f32-wire step from the
+    state after step 2, compared with int8 step 3."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synth import batch_at
+    from repro_torch.dist import compress
+    from repro_torch.dist import lcmp_collectives as lc
+    from repro_torch.dist.lcmp_collectives import PodAxis, tree_flatten
+    from repro_torch.kernels import ops
+    from repro_torch.train import optim
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+    cfg = train_config()
+    M = cfg.param_count()
+    axis = PodAxis("pod", TRAIN_PODS)
+    steps = {mode: make_train_step(cfg, TrainConfig(pod_reduce=mode,
+                                                    pod_axis=axis))
+             for mode in ("lcmp_int8", "lcmp")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(cfg, 0, device=dev)
+    lc._TELEMETRY.reset()
+    nb = -(-M // lc.BUCKET_ELEMS)           # the reference's bucket ids
+    ids = lc._fmix32_host(np.arange(nb, dtype=np.uint32) + np.uint32(1))
+    routes = lc.schedule_buckets(ids)
+    want_bytes = {m: np.zeros(lc.NUM_ROUTES, np.int64) for m in steps}
+    for b in range(nb):                     # the reference's accounting loop
+        blen = min((b + 1) * lc.BUCKET_ELEMS, M) - b * lc.BUCKET_ELEMS
+        want_bytes["lcmp_int8"][routes[b]] += blen + 4 * (-(-blen // 1024))
+        want_bytes["lcmp"][routes[b]] += 4 * blen
+
+    def run(mode: str, k: int, prof=None) -> dict:
+        nonlocal params, opt
+        batch = batch_at(cfg, k, batch=TRAIN_PODS, seq=TRAIN_SEQ, device=dev)
+        step = steps[mode]
+        torch.cuda.synchronize()
+        before, rb = ops.counts(), lc._TELEMETRY.route_bytes.copy()
+        t0 = time.perf_counter()
+        if prof is None:
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+        else:
+            with prof:
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = ops.counts()
+        rec = {"mode": mode, "step": k + 1, "wall_s": wall,
+               "tokens_per_s": TRAIN_PODS * TRAIN_SEQ / wall,
+               "loss": m["loss"].tolist(), "grad_norm": float(m["grad_norm"]),
+               "split_ms": step.split_ms(), "profiled": prof is not None,
+               "launches": {n: after[n] - before[n]
+                            for n in ("qsr_int8", "qsr_dequant")},
+               "route_bytes": (lc._TELEMETRY.route_bytes - rb).tolist()}
+        require(all(math.isfinite(v) for v in rec["loss"])
+                and math.isfinite(rec["grad_norm"]),
+                f"train step {k + 1} ({mode}): finite loss and grad_norm")
+        require(rec["route_bytes"] == want_bytes[mode].tolist(),
+                f"train step {k + 1} ({mode}): route_bytes as the reference's loop")
+        require(np.array_equal(lc._TELEMETRY.bucket_routes, routes),
+                f"train step {k + 1} ({mode}): buckets bound as schedule_buckets")
+        if mode == "lcmp_int8":
+            worst, ok = int8_block_errors(step.reduced, step.grads)
+            rec["int8_err_over_block_scale"] = worst
+            require(ok, f"train step {k + 1}: int8 gradient within 2.1 of "
+                    "each block's own scale of the exact pod mean")
+        return rec
+
+    ops.reset_counts()                      # the main path: 3 int8 steps
+    records = [run("lcmp_int8", 0), run("lcmp_int8", 1)]
+    saved = [[x.detach().to("cpu", copy=True) for x in tree_flatten(t)[0]]
+             for t in (params, opt.mu, opt.nu)]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    records.append(run("lcmp_int8", 2, prof))
+    launches = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    profiled = qsr_device_ms(prof)
+    del prof
+    int8_step = steps["lcmp_int8"]
+    wire = compress.encode(int8_step.grads[0], seed=int(ids[0]))
+    wire_ratio = compress.wire_bytes(wire) / (4 * M)
+    del wire
+    p_int8 = [x.detach().to("cpu", copy=True) for x in tree_flatten(params)[0]]
+    int8_step.grads = int8_step.reduced = None
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():                   # back to the state after step 2
+        for tree, host in zip((params, opt.mu, opt.nu), saved):
+            for x, h in zip(tree_flatten(tree)[0], host):
+                x.copy_(h)
+    opt = optim.AdamWState(count=torch.tensor(2, dtype=torch.int32, device=dev),
+                           mu=opt.mu, nu=opt.nu)
+    del saved
+    records.append(run("lcmp", 2))
+    ocfg = optim.AdamWConfig()
+    lr3 = float(optim._schedule(ocfg, torch.tensor(3.0)))
+    limit = 2 * lr3 * adam_bound(ocfg, 3)
+    worst, far, ok = params_within(p_int8, tree_flatten(params)[0], limit, dev)
+    timed = records[1]                      # int8, after a warm-up step
+    out = {"phase": "train", "config": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "params": M,
+           "pods": TRAIN_PODS, "seq_per_pod": TRAIN_SEQ,
+           "act_dtype": cfg.act_dtype, "records": records,
+           "launches": {n: launches[n] for n in ("qsr_int8", "qsr_dequant")},
+           "launches_per_int8_step": {n: launches[n] / 3
+                                      for n in ("qsr_int8", "qsr_dequant")},
+           "int8_step_wall_s": timed["wall_s"],
+           "int8_step_split_ms": timed["split_ms"],
+           "tokens_per_s": timed["tokens_per_s"],
+           "f32_step_wall_s": records[3]["wall_s"],
+           "f32_step_split_ms": records[3]["split_ms"],
+           "profiled_int8_step": profiled,
+           "wire_bytes_over_f32": wire_ratio,
+           "int8_vs_f32_params_max_diff": worst,
+           "int8_vs_f32_params_limit": limit,
+           "int8_vs_f32_share_beyond_rounding": far,
+           "max_memory_allocated": peak}
+    emit(out)
+    require(launches["qsr_int8"] == 3 * 2 * TRAIN_PODS
+            and launches["qsr_dequant"] == 3 * (TRAIN_PODS + 1),
+            "train: the int8 steps launched both qsr kernels, 2n and n+1 a step")
+    require(all(v == 0 for v in records[3]["launches"].values()),
+            "train: the f32-wire step launched no qsr kernel")
+    require(all(v > 0 for v in profiled["qsr_device_ms"].values()),
+            "train: the profiler saw both qsr kernels run")
+    require(wire_ratio <= 0.26, "train: int8 wire at most 0.26 of f32 bytes")
+    require(ok and far < FAR_SHARE, f"train: int8 and f32 paths' parameters "
+            f"within {limit:.3g} after one step from the same state, beyond "
+            f"float32 rounding on under {FAR_SHARE:.0%}")
+    return out
+
+
+def phase_train_device_vs_cpu(dev) -> dict:
+    """One smoke-size 2-pod int8 step (bf16 activations) on the card and
+    on the CPU from the same weights and batch. bf16 matmuls round at
+    other places on the two, so: losses within rtol 2e-2; the pods' flat
+    gradients within 5e-2 relative L2 (measured 1.1e-2 between bf16 and
+    f32 activations on the CPU); parameters within AdamW's first-step
+    bound 2 lr_1 (the normalized update flips only where |g| is tiny) on
+    every element, and beyond float32 rounding on under 5% of them. The
+    reduce itself is exact arithmetic around bit-exact kernels, so the
+    card's reduce of its pods' gradients must equal the CPU's plain
+    reduce of the same gradients bit for bit."""
+    from repro_torch import configs
+    from repro_torch.data.synth import batch_at
+    from repro_torch.dist import lcmp_collectives as lc
+    from repro_torch.dist.lcmp_collectives import PodAxis, tree_flatten
+    from repro_torch.kernels import ops
+    from repro_torch.models import carry
+    from repro_torch.train import optim
+    from repro_torch.train.step import (TrainConfig, init_train_state,
+                                        make_train_step)
+    cfg = configs.get("qwen3_4b", smoke=True)
+    tcfg = TrainConfig(pod_reduce="lcmp_int8", pod_axis=PodAxis("pod", 2))
+    params_c, opt_c = init_train_state(cfg, 0, device="cpu")
+    params_g = carry.params_from_reference(carry.to_numpy(params_c), device=dev)
+    opt_g = optim.adamw_init(params_g)
+    batch_c = batch_at(cfg, 0, batch=4, seq=64, device="cpu")
+    batch_g = {k: v.to(dev) for k, v in batch_c.items()}
+    step_g, step_c = make_train_step(cfg, tcfg), make_train_step(cfg, tcfg)
+    ops.reset_counts()
+    params_g, _, mg = step_g(params_g, opt_g, batch_g)
+    torch.cuda.synchronize()
+    launches = ops.counts()
+    params_c, _, mc = step_c(params_c, opt_c, batch_c)
+    ocfg = optim.AdamWConfig()
+    limit = 2 * float(optim._schedule(ocfg, torch.tensor(1.0))) * adam_bound(ocfg, 1)
+    worst, far, ok = params_within(tree_flatten(params_g)[0],
+                                   tree_flatten(params_c)[0], limit,
+                                   torch.device("cpu"))
+    reduced_exact = torch.equal(step_g.reduced.cpu(), lc.pod_reduce_flat(
+        step_g.grads.cpu(), tcfg.pod_axis, compress=True))
+    gc = step_c.grads
+    grad_rel = float((step_g.grads.cpu() - gc).norm() / gc.norm())
+    lc._TELEMETRY.reset()
+    out = {"phase": "train_device_vs_cpu", "config": cfg.name,
+           "act_dtype": cfg.act_dtype, "loss_gpu": mg["loss"].tolist(),
+           "loss_cpu": mc["loss"].tolist(), "grad_norm_gpu": float(mg["grad_norm"]),
+           "grad_norm_cpu": float(mc["grad_norm"]), "grad_rel_l2": grad_rel,
+           "reduced_equals_cpu_reduce": reduced_exact,
+           "params_max_diff": worst, "params_limit": limit,
+           "params_share_beyond_rounding": far,
+           "launches": {n: launches[n] for n in ("qsr_int8", "qsr_dequant")}}
+    emit(out)
+    require(np.allclose(out["loss_gpu"], out["loss_cpu"], rtol=2e-2, atol=0),
+            "train device vs cpu: losses within rtol 2e-2")
+    require(grad_rel <= 5e-2, "train device vs cpu: gradients within 5e-2")
+    require(reduced_exact, "train device vs cpu: the card's int8 reduce of its "
+            "pods' gradients equals the CPU's plain reduce of them, bit for bit")
+    require(ok and far < 0.05, "train device vs cpu: parameters within "
+            "AdamW's bound, beyond rounding on under 5%")
+    require(launches["qsr_int8"] == 4 and launches["qsr_dequant"] == 3,
+            "train device vs cpu: the card step ran the qsr kernels")
+    return out
+
+
+def kernel_summary(checks: dict, runs: dict, train: dict) -> dict:
     """The ``kernels`` line: each kernel at testbed8's main-path shape,
     with its launches summed over the four main-path runs."""
     meta = {"cong_update": ("src/repro_torch/kernels/csrc/cong_update.cu",
@@ -419,15 +807,33 @@ def kernel_summary(checks: dict, runs: dict) -> dict:
             "launches": sum(r["launches"][name] for r in runs.values()),
             "launches_by_run": {f"{w}/{p}": r["launches"][name]
                                 for (w, p), r in runs.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **kernel_fields(rows)})
+    # the qsr pair at the train phase's first-leg shape (every pod's
+    # padded gradient; the dequant of the received partials and of the
+    # gathered mean have the same length), launched by the 3 int8 steps
+    for name, replaces in (("qsr_int8", "src/repro/kernels/qsr_int8.py:41"),
+                           ("qsr_dequant", "src/repro/kernels/qsr_int8.py:65")):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/qsr_int8.cu",
+            "replaces": replaces, "launches": train["launches"][name],
+            "launches_by_run": {"train/lcmp_int8 x3": train["launches"][name]},
+            **kernel_fields(checks[name])})
+    return {"kernels": out}
+
+
+def kernel_fields(rows: list) -> dict:
+    """The timing fields of a kernel's line, from its first (main-path)
+    shape, with every checked shape beside them."""
+    main = rows[0]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"],
             "call_ms": main["call_ms"], "plain_call_ms": main["plain_call_ms"],
             "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "call_ms",
                                           "bound_ms", "bound_by")}
-                       for r in rows]})
-    return {"kernels": out}
+                       for r in rows]}
 
 
 def main() -> int:
@@ -447,7 +853,9 @@ def main() -> int:
     runs = phase_runs(dev)
     phase_profile(dev)
     phase_device_vs_cpu(dev)
-    emit(kernel_summary(checks, runs))
+    train = phase_train(dev)
+    phase_train_device_vs_cpu(dev)
+    emit(kernel_summary(checks, runs, train))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -30,7 +30,7 @@ class SelectParams:
     cong_fallback: int = 230   # "all highly congested" bar
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """(x * c) mod 2**32 for int64 x in [0, 2**32), without overflow."""
     lo, hi = c & 0xFFFF, c >> 16
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
@@ -41,9 +41,9 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
     as unsigned values in int64 [0, 2**32)."""
     x = x.to(torch.int64) & _M32
     x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
+    x = mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
+    x = mul32(x, 0xC2B2AE35)
     x = x ^ (x >> 16)
     return x
 

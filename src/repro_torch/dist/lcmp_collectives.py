@@ -1,0 +1,315 @@
+"""LCMP-scheduled cross-pod collectives: the paper's router applied to
+gradient buckets on the inter-datacenter long haul.
+
+Counterpart of ``repro/dist/lcmp_collectives.py``. The route model, the
+telemetry register file and the two-stage bucket scheduling are the
+reference's numpy code, copied bit for bit: ``NUM_ROUTES`` candidate
+route programs (direct DCI, fallback DCI, transit-pod detour) with a
+static path-quality score each (``C_PATH``), Q/T/D registers fed with
+observed wall times (``RouteTelemetry``), and ``schedule_buckets``,
+which binds each fixed-size bucket of the flat gradient to a live route
+by fused cost, keep-the-cheaper-half and an fmix32 hash.
+
+The reduction runs over a **pod group on one device**. The reference's
+pod axis is a named ``shard_map`` axis, and its CPU tests emulate the
+pods as host devices of one process; here a ``PodAxis(name, size)``
+stands in for the bound axis, per-pod values carry a leading ``(n, ...)``
+dimension, and the collectives are exact index moves on it: the
+reduce-scatter/all-gather mean is a sum over the pod dimension, the
+``all_to_all`` of the int8 path hands pod ``d`` chunk ``d`` of every
+source, and the ``all_gather`` concatenates the pods' chunks. Every pod
+ends with the same mean, so the reduction returns it once. With
+``compress=True`` both wire legs are int8 with one f32 scale per 1024
+elements (``dist.compress`` over the ``qsr_int8``/``qsr_dequant``
+kernels), with the reference's per-pod random bits, so the result equals
+the reference's. A ``torch.distributed`` backend across cards is not
+ported (ROADMAP.md, queue A item 9).
+
+Wire accounting differs in one way: the reference adds to
+``_TELEMETRY.route_bytes`` once per *trace* of its jitted step; this
+eager port adds once per *call*. One call here equals one traced call
+there. The port also records the last call's bucket binding in
+``_TELEMETRY.bucket_routes``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.dist import compress as comp
+from repro_torch.kernels import ops
+from repro_torch.kernels.qsr_int8 import BLOCK
+
+# Candidate inter-pod route programs (one-way propagation us, capacity
+# Gbps): direct DCI, fallback DCI, transit-pod detour.
+NUM_ROUTES = 3
+ROUTE_PROP_US = np.array([5_000, 20_000, 45_000], np.int64)
+ROUTE_CAP_GBPS = np.array([400, 200, 100], np.int64)
+ALPHA, BETA = 3, 1            # paper §5/§7 fused-cost weights
+BUCKET_ELEMS = 1 << 16        # 256 KiB f32 buckets on the wire
+LEG2_SEED_XOR = 0x5851F42D    # the second wire leg's seed offset
+
+
+def _fmix32_host(x: np.ndarray) -> np.ndarray:
+    """MurmurHash3 finalizer over uint32 (host-side twin of
+    ``core.select.fmix32``)."""
+    x = np.asarray(x, np.uint32).copy()
+    x ^= x >> np.uint32(16)
+    x = (x * np.uint32(0x85EBCA6B)).astype(np.uint32)
+    x ^= x >> np.uint32(13)
+    x = (x * np.uint32(0xC2B2AE35)).astype(np.uint32)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def _route_cpath() -> np.ndarray:
+    """Static per-route C_path, integer mirror of ``core.pathq`` Eq. 2:
+    delayScore = min(us >> 8, 255); capacity classes of 40 Gbps, fatter
+    link -> lower cost; fused with (w_dl, w_lc) = (3, 1), >> 2."""
+    d = np.minimum(ROUTE_PROP_US >> 8, 255)
+    cls = np.minimum(ROUTE_CAP_GBPS // 40, 10)
+    lc_score = ((10 - cls) * 255) // 10
+    return np.minimum((3 * d + lc_score) >> 2, 255)
+
+
+C_PATH = _route_cpath()
+
+
+class RouteTelemetry:
+    """Host-side per-route register file (the 24 B/port registers of
+    ``core.cong``, §3.3): EWMA trend (Eq. 3), level and persistence,
+    driven by per-step wall-time observations."""
+
+    EWMA_K = 3          # Eq. 3 shift
+    HIGH_MS = 512       # wall-time level treated as "congested"
+
+    def __init__(self, n: int = NUM_ROUTES):
+        self.n = n
+        self.reset()
+
+    def reset(self):
+        self.cur = np.zeros(self.n, np.int64)
+        self.trend = np.zeros(self.n, np.int64)
+        self.dur = np.zeros(self.n, np.int64)
+        self.last_step = -1
+        self.alive = np.ones(self.n, bool)
+        self.route_bytes = np.zeros(self.n, np.int64)
+        self.bucket_routes = np.zeros(0, np.int64)
+
+    def observe(self, ms, step: int):
+        """Feed one per-route wall-time sample (ms) at train ``step``."""
+        ms = np.asarray(ms, np.int64)
+        delta = ms - self.cur
+        self.trend = (self.trend - (self.trend >> self.EWMA_K)
+                      + (delta >> self.EWMA_K))
+        self.cur = ms
+        self.dur = np.where(ms >= self.HIGH_MS, self.dur + 1, self.dur >> 1)
+        self.last_step = int(step)
+
+    def observe_measured(self, bucket_ms, bucket_routes, step: int):
+        """Feed externally measured per-bucket wall times (ms). A route's
+        sample is the MAX over its buckets (the straggler bucket is what
+        the step waits on); a route with no bucket this step holds its
+        level; buckets with route -1 (unrouted) are dropped."""
+        bucket_ms = np.asarray(bucket_ms, np.int64).reshape(-1)
+        routes = np.asarray(bucket_routes, np.int64).reshape(-1)
+        if bucket_ms.shape != routes.shape:
+            raise ValueError(f"bucket_ms {bucket_ms.shape} and "
+                             f"bucket_routes {routes.shape} must align")
+        ok = (routes >= 0) & (routes < self.n)
+        slow = np.full(self.n, -(1 << 60), np.int64)
+        np.maximum.at(slow, routes[ok], bucket_ms[ok])
+        self.observe(np.where(slow > -(1 << 60), slow, self.cur), step)
+
+    def cong_scores(self) -> np.ndarray:
+        """C_cong per route in [0, 255] (Eqs. 4-5 shape: (2Q+T+D) >> 2)."""
+        q = np.minimum(self.cur >> 2, 255)
+        t = np.minimum(np.maximum(self.trend, 0), 255)
+        d = np.minimum(self.dur, 255)
+        return np.minimum((2 * q + t + d) >> 2, 255).astype(np.int64)
+
+
+_TELEMETRY = RouteTelemetry()
+
+
+def set_route_liveness(alive) -> None:
+    """Control-plane liveness update (route withdrawal / fast failover)."""
+    alive = np.asarray(alive, bool).copy()
+    if alive.shape != (_TELEMETRY.n,):
+        raise ValueError(f"alive must have shape ({_TELEMETRY.n},), "
+                         f"got {alive.shape}")
+    _TELEMETRY.alive = alive
+
+
+def schedule_buckets(bucket_ids: np.ndarray) -> np.ndarray:
+    """Two-stage LCMP selection over routes for a batch of bucket ids
+    (``core.select.select_egress`` semantics, host-side): fused cost,
+    keep the lower-cost half of live routes (>= 1), fmix32-hash each
+    bucket id inside the kept set. Returns -1 when no route is live."""
+    ids = np.asarray(bucket_ids, np.uint32)
+    cost = ALPHA * C_PATH + BETA * _TELEMETRY.cong_scores()
+    live = np.nonzero(_TELEMETRY.alive)[0]
+    if live.size == 0:
+        return np.full(ids.shape, -1, np.int64)
+    order = live[np.argsort(cost[live], kind="stable")]
+    keep = order[: max(1, (live.size + 1) // 2)]
+    return keep[_fmix32_host(ids) % np.uint32(len(keep))].astype(np.int64)
+
+
+# ---------------------------------------------------------------- pod axis
+@dataclasses.dataclass(frozen=True)
+class PodAxis:
+    """A pod axis bound over ``size`` pods held on one device."""
+    name: str
+    size: int
+
+    def __post_init__(self):
+        if self.size < 1:
+            raise ValueError(f"PodAxis {self.name!r}: size must be >= 1")
+
+
+def _axis_size_or_none(axis):
+    """Size of the pod axis, or None without one (the no-op path)."""
+    return None if axis is None else axis.size
+
+
+# ------------------------------------------------------------------ pytree
+def tree_flatten(tree) -> Tuple[List[torch.Tensor], Callable]:
+    """Leaves of a nested dict/list/tuple of tensors in the reference's
+    ``jax.tree.flatten`` order (dict keys sorted), and the function that
+    rebuilds the tree from a list of new leaves."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [tree_flatten(v) for v in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    sizes = [len(p[0]) for p in parts]
+    leaves = [leaf for p in parts for leaf in p[0]]
+
+    def rebuild(new):
+        out, o = [], 0
+        for (_, rb), s in zip(parts, sizes):
+            out.append(rb(new[o:o + s]))
+            o += s
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+    return leaves, rebuild
+
+
+# ----------------------------------------------------------------- reduce
+def bucket_binding(total: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Bucket ids of a flat vector of ``total`` elements and the route
+    ``schedule_buckets`` binds each to."""
+    nb = -(-total // BUCKET_ELEMS)
+    ids = _fmix32_host(np.arange(nb, dtype=np.uint32) + np.uint32(1))
+    return ids, schedule_buckets(ids)
+
+
+def _account(total: int, routes: np.ndarray, compress: bool) -> None:
+    """Add each bucket's wire bytes to its route's ``route_bytes``."""
+    start = np.arange(len(routes), dtype=np.int64) * BUCKET_ELEMS
+    blen = np.minimum(start + BUCKET_ELEMS, total) - start
+    wire = blen + 4 * (-(-blen // BLOCK)) if compress else 4 * blen
+    ok = routes >= 0
+    np.add.at(_TELEMETRY.route_bytes, routes[ok], wire[ok])
+    _TELEMETRY.bucket_routes = routes
+
+
+def _reduce_flat_f32(seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Exact mean over the pod dimension of ``seg`` (n, m): the
+    reduce-scatter's sum, then one IEEE division by n."""
+    return seg.sum(0) / torch.full((), float(n), device=seg.device)
+
+
+def int8_leg_sizes(m: int, n: int) -> Tuple[int, int]:
+    """``(mp, chunk)`` of the int8 reduce of m elements over n pods: each
+    pod's padded vector (the first leg) and the chunk each pod averages
+    and re-quantizes (the second leg)."""
+    chunk = -(-m // n)                  # per-pod chunk ...
+    chunk = -(-chunk // BLOCK) * BLOCK  # ... rounded up to the scale block
+    return n * chunk, chunk
+
+
+def _reduce_flat_int8(seg: torch.Tensor, n: int, seed: int) -> torch.Tensor:
+    """Compressed mean over the pod dimension of ``seg`` (n, m): each pod
+    quantizes its vector -> all_to_all (pod d gets chunk d of every
+    pod) -> dequant + partial mean -> re-quantize -> all_gather ->
+    dequant. Both wire legs carry int8 + per-1024 f32 scales."""
+    m = seg.shape[1]
+    mp, chunk = int8_leg_sizes(m, n)
+    dev = seg.device
+    cb = chunk // BLOCK
+
+    legs = []                           # leg 1: (q, scales) of each pod
+    for p in range(n):
+        x = seg[p]
+        if mp != m:
+            x = torch.cat([x, x.new_zeros((mp - m,))])
+        legs.append(ops.qsr_int8(x, comp.rand_bits(mp, seed, salt=p,
+                                                   device=dev)))
+    qg, sg = [], []                     # leg 2: each pod's mean chunk
+    for d in range(n):
+        q2 = torch.cat([q[d * chunk:(d + 1) * chunk] for q, _ in legs])
+        s2 = torch.cat([s[d * cb:(d + 1) * cb] for _, s in legs])
+        mean_chunk = ops.qsr_dequant(q2, s2).reshape(n, chunk).mean(0)
+        qm, sm = ops.qsr_int8(mean_chunk, comp.rand_bits(
+            chunk, seed ^ LEG2_SEED_XOR, salt=d, device=dev))
+        qg.append(qm)
+        sg.append(sm)
+    del legs
+    return ops.qsr_dequant(torch.cat(qg), torch.cat(sg))[:m]
+
+
+def pod_reduce_flat(flat: torch.Tensor, axis, compress: bool = False
+                    ) -> torch.Tensor:
+    """Mean of ``flat`` (n, M) float32, the pods' flat gradients in the
+    reference's leaf order, over ``axis``: the (M,) vector every pod
+    holds afterwards. Binds the buckets to routes and accounts their
+    wire bytes, as ``lcmp_pod_reduce`` does."""
+    n = _axis_size_or_none(axis)
+    if n is None or flat.shape[0] != n:
+        raise ValueError(f"pod_reduce_flat: flat must be (n, M) with n the "
+                         f"size of {axis}, got {tuple(flat.shape)}")
+    total = int(flat.shape[1])
+    ids, routes = bucket_binding(total)
+    _account(total, routes, compress)
+    if compress:
+        return _reduce_flat_int8(flat, n, seed=int(ids[0]))
+    return _reduce_flat_f32(flat, n)
+
+
+def lcmp_pod_reduce(tree, axis, compress: bool = False):
+    """Mean-reduce a gradient tree over ``axis`` (== pmean), as
+    LCMP-scheduled fixed-size buckets. Leaves carry the pod dimension
+    first, ``(n, *shape)``; the result has the same structure, each leaf
+    a broadcast view of the one mean every pod holds. No-op when
+    ``axis`` is None or of size 1 (single-pod runs).
+
+    With ``compress=True`` the wire is int8 (3.98x fewer bytes, error
+    within 2 quantization steps)."""
+    n = _axis_size_or_none(axis)
+    if n is None or n == 1:
+        return tree
+    leaves, rebuild = tree_flatten(tree)
+    for leaf in leaves:
+        if leaf.dim() == 0 or leaf.shape[0] != n:
+            raise ValueError(f"lcmp_pod_reduce: every leaf needs a leading "
+                             f"pod dimension of {n}, got {tuple(leaf.shape)}")
+    flat = torch.cat([leaf.reshape(n, -1).to(torch.float32)
+                      for leaf in leaves], dim=1)
+    out = pod_reduce_flat(flat, axis, compress)
+    new, o = [], 0
+    for leaf in leaves:
+        shape = leaf.shape[1:]
+        size = int(np.prod(shape)) if len(shape) else 1
+        new.append(out[o:o + size].reshape(shape).to(leaf.dtype)
+                   .unsqueeze(0).expand(n, *shape))
+        o += size
+    return rebuild(new)

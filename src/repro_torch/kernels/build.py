@@ -24,7 +24,8 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
 
-SOURCES = {"cong_update": "cong_update.cu", "lcmp_decide": "lcmp_decide.cu"}
+SOURCES = {"cong_update": "cong_update.cu", "lcmp_decide": "lcmp_decide.cu",
+           "qsr_int8": "qsr_int8.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,7 +37,13 @@ ARGTYPES = {
     "cong_update_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "lcmp_decide_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qsr_int8_launch": [_LL, _P, _P, _P, _P, _P],
+    "qsr_dequant_launch": [_LL, _P, _P, _P, _P],
 }
+# the launchers each source's library exports
+LAUNCHERS = {"cong_update": ("cong_update_launch",),
+             "lcmp_decide": ("lcmp_decide_launch",),
+             "qsr_int8": ("qsr_int8_launch", "qsr_dequant_launch")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -57,14 +64,14 @@ def _lib_path(name: str) -> str:
 
 
 def ptxas_info(log: str) -> Dict[str, int]:
-    """Registers and spill bytes from an ``-Xptxas -v`` log (one kernel
-    per source)."""
-    regs = re.findall(r"Used (\d+) registers", log)
-    stores = re.findall(r"(\d+) bytes spill stores", log)
-    loads = re.findall(r"(\d+) bytes spill loads", log)
-    return {"registers": int(regs[-1]) if regs else -1,
-            "spill_stores": int(stores[-1]) if stores else -1,
-            "spill_loads": int(loads[-1]) if loads else -1}
+    """Registers and spill bytes from an ``-Xptxas -v`` log: the most
+    over the source's kernels."""
+    def most(pattern: str) -> int:
+        found = [int(v) for v in re.findall(pattern, log)]
+        return max(found) if found else -1
+    return {"registers": most(r"Used (\d+) registers"),
+            "spill_stores": most(r"(\d+) bytes spill stores"),
+            "spill_loads": most(r"(\d+) bytes spill loads")}
 
 
 def build_all(force: bool = False) -> Dict[str, dict]:
@@ -113,9 +120,10 @@ def load(name: str) -> ctypes.CDLL:
         if not os.path.exists(path):
             build_all()
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = ARGTYPES[f"{name}_launch"]
-        fn.restype = ctypes.c_int
+        for launcher in LAUNCHERS[name]:
+            fn = getattr(lib, launcher)
+            fn.argtypes = ARGTYPES[launcher]
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

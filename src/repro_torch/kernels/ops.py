@@ -2,7 +2,8 @@
 ``repro/kernels/ops.py``), with the same signatures as the plain versions
 in ``ref.py``. Each wrapper runs the plain version for CPU tensors and
 its CUDA kernel for CUDA tensors; what the kernel does not take (on the
-card, ``lcmp_decide`` candidate sets wider than 8) raises.
+card, ``lcmp_decide`` candidate sets wider than 8, or int64 random bits
+for ``qsr_int8``) raises.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from repro_torch.core.cong import CongParams
 from repro_torch.core.select import SelectParams
 from repro_torch.kernels import cong_update as _cong
 from repro_torch.kernels import lcmp_decide as _decide
+from repro_torch.kernels.qsr_int8 import qsr_dequant, qsr_int8
 
 
 def lcmp_decide(flow_ids, c_path, c_cong, valid, params=None):
@@ -24,12 +26,16 @@ def cong_update(state, queue_cells, now_us, tables, params=None,
                              hist_c, slot)
 
 
+_COUNTED = {"cong_update": _cong.cong_update,
+            "lcmp_decide": _decide.lcmp_decide,
+            "qsr_int8": qsr_int8, "qsr_dequant": qsr_dequant}
+
+
 def counts() -> dict:
     """Kernel launches since the last reset."""
-    return {"cong_update": _cong.cong_update.launches,
-            "lcmp_decide": _decide.lcmp_decide.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_counts() -> None:
-    _cong.cong_update.launches = 0
-    _decide.lcmp_decide.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0

@@ -1,0 +1,218 @@
+"""Architecture definitions: ``ArchConfig`` and the dense decoder.
+
+Counterpart of ``repro/models/arch.py``. ``ArchConfig`` is the
+reference's, field for field. ``param_count`` (from the parameter
+shapes), ``init_params`` and ``forward`` cover the ``dense`` family
+(GQA, qk-norm, SwiGLU, untied head). The other families, and the gemma
+features of the dense one (sliding-window and local/global layers,
+softcaps, the ``sqrt(d)`` embedding scale), raise ``NotImplementedError``
+naming their ROADMAP.md item.
+
+Parameters are a nested dict of float32 tensors in the reference's
+layout: per-layer leaves stacked on axis 0 (``layers.attn.wq`` is
+``(L, D, H*hd)``, input dimension first, not ``nn.Linear``'s
+``(out, in)``), so the flat gradient, its 1024-element scale blocks and
+its buckets are the reference's. Each layer runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import device as devmod
+from repro_torch.models import layers as L
+
+_NORMS = ("ln", "q_norm", "k_norm", "final_ln")     # scales, initialized to 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense|moe|ssm|hybrid|encdec|vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None         # default d_model // n_heads
+    # attention flavor
+    rope_theta: float = 10_000.0
+    window: Optional[int] = None           # sliding window size
+    alt_local_global: bool = False         # gemma2: even layers local
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    qk_norm: bool = False
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    # ssm
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    mamba_version: int = 2
+    # hybrid (zamba2): shared attention block every k layers
+    shared_attn_every: int = 0
+    # encdec
+    n_enc_layers: int = 0
+    enc_seq: int = 1500
+    # vlm
+    n_patches: int = 0
+    # numerics
+    act_dtype: str = "bfloat16"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def adt(self) -> torch.dtype:
+        return getattr(torch, self.act_dtype)
+
+    def param_count(self) -> int:
+        """Total N (for MODEL_FLOPS accounting), from the shapes."""
+        return _count(param_shapes(self))
+
+
+# ------------------------------------------------------------------ shapes
+def _attn_shapes(cfg: ArchConfig) -> dict:
+    D, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    p = dict(ln=(D,), wq=(D, H * hd), wk=(D, Kv * hd), wv=(D, Kv * hd),
+             wo=(H * hd, D))
+    if cfg.qk_norm:
+        p["q_norm"] = (hd,)
+        p["k_norm"] = (hd,)
+    return p
+
+
+def _mlp_shapes(cfg: ArchConfig) -> dict:
+    D, Fd = cfg.d_model, cfg.d_ff
+    return dict(ln=(D,), w_gate=(D, Fd), w_up=(D, Fd), w_down=(Fd, D))
+
+
+def _stack(tree: dict, n: int) -> dict:
+    return {k: _stack(v, n) if isinstance(v, dict) else (n, *v)
+            for k, v in tree.items()}
+
+
+def _family_not_ported(cfg: ArchConfig) -> NotImplementedError:
+    return NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue A "
+        "item 11); the port runs the dense family")
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The reference's parameter tree of the dense family, as a nested
+    dict of shapes."""
+    if cfg.family != "dense":
+        raise _family_not_ported(cfg)
+    layer = dict(attn=_attn_shapes(cfg), mlp=_mlp_shapes(cfg))
+    return dict(embed=(cfg.vocab, cfg.d_model),
+                lm_head=(cfg.vocab, cfg.d_model), final_ln=(cfg.d_model,),
+                layers=_stack(layer, cfg.n_layers))
+
+
+def _count(tree: dict) -> int:
+    return sum(_count(v) if isinstance(v, dict) else math.prod(v)
+               for v in tree.values())
+
+
+def _require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise _family_not_ported(cfg)
+    if (cfg.window or cfg.alt_local_global or cfg.attn_softcap
+            or cfg.final_softcap or cfg.name.startswith("gemma")):
+        raise NotImplementedError(
+            "gemma's sliding-window and local/global layers, softcaps and "
+            "embedding scale are not ported yet (ROADMAP.md, queue A item 11)")
+
+
+# ------------------------------------------------------------------- init
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=devmod.DEFAULT):
+    """Random float32 parameters from ``seed``, the reference's scheme
+    (norm scales 0; ``embed`` unit normal; every other matrix normal over
+    the square root of its (per-layer) input dimension). The numbers
+    differ from the reference's PRNG; tests carry the reference's weights
+    over with ``models.carry``."""
+    _require_dense(cfg)
+    dev = devmod.resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def make(name: str, shape, stacked: bool) -> torch.Tensor:
+        if name in _NORMS:
+            t = torch.zeros(shape, dtype=torch.float32, device=dev)
+        else:
+            fan_in = shape[1] if stacked else shape[0]
+            scale = 1.0 if name == "embed" else 1.0 / math.sqrt(fan_in)
+            t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=dev).mul_(scale)
+        return t.requires_grad_()
+
+    def walk(tree: dict, stacked: bool) -> dict:
+        return {k: walk(v, stacked or k == "layers") if isinstance(v, dict)
+                else make(k, v, stacked) for k, v in sorted(tree.items())}
+    return walk(param_shapes(cfg), False)
+
+
+# ----------------------------------------------------------------- forward
+def _attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Causal self-attention with RoPE over the full sequence."""
+    B, S, D = x.shape
+    h = L.rms_norm(x, p["ln"])
+    q = h @ p["wq"].to(h.dtype)
+    k = h @ p["wk"].to(h.dtype)
+    v = h @ p["wv"].to(h.dtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    k = k.reshape(B, S, cfg.n_kv, cfg.hd)
+    v = v.reshape(B, S, cfg.n_kv, cfg.hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"])
+        k = L.rms_norm(k, p["k_norm"])
+    pos = torch.arange(S, device=x.device)[None]
+    q = L.rope(q, pos, cfg.rope_theta)
+    k = L.rope(k, pos, cfg.rope_theta)
+    o = L.gqa_attention(q, k, v)
+    o = o.reshape(B, S, cfg.n_heads * cfg.hd)
+    return x + o @ p["wo"].to(h.dtype)
+
+
+def _mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln"])
+    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _decoder_layer(cfg: ArchConfig, params: dict, x: torch.Tensor):
+    """One dense decoder layer."""
+    x = _attn_apply(params["attn"], x, cfg)
+    return _mlp_apply(params["mlp"], x)
+
+
+def _unstack(tree: dict, n: int) -> list:
+    """Stacked layer leaves -> one dict per layer (views; the gradient
+    of ``unbind`` stacks the layers' gradients back in one pass)."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            extra=None) -> torch.Tensor:
+    """Training/prefill forward -> logits (B, S, V) in float32."""
+    _require_dense(cfg)
+    if extra is not None:
+        raise NotImplementedError("extra inputs belong to the vlm/encdec "
+                                  "families (ROADMAP.md, queue A item 11)")
+    x = params["embed"][tokens].to(cfg.adt)
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if torch.is_grad_enabled():
+            x = checkpoint(lambda h, lp=lp: _decoder_layer(cfg, lp, h), x,
+                           use_reentrant=False)
+        else:
+            x = _decoder_layer(cfg, lp, x)
+    x = L.rms_norm(x, params["final_ln"])
+    return (x @ params["lm_head"].to(x.dtype).t()).to(torch.float32)

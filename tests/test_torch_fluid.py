@@ -152,12 +152,17 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "for m in ('dist.compress', 'dist.lcmp_collectives', 'models.arch',\n"
+        "          'models.layers', 'models.carry', 'train.optim', 'train.step',\n"
+        "          'data.synth', 'configs', 'configs.qwen3_4b',\n"
+        "          'kernels.qsr_int8'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     p = subprocess.run([sys.executable, "-c", code, REPO], capture_output=True,
                        text=True, env=env, timeout=120)
     assert p.returncode == 0, p.stderr
-    assert int(p.stdout.strip()) >= 20          # really imported the port
+    assert int(p.stdout.strip()) >= 35          # really imported the port
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):

@@ -137,7 +137,8 @@ def test_lcmp_decide_wide_sets_run_the_plain_version_on_cpu(jref):
     inp = _decide_inputs(7, 64, 10)
     want = jref.ref.lcmp_decide_ref(*inp)
     _eq(ops.lcmp_decide(*_torch(*inp)), want)
-    assert ops.counts() == {"cong_update": 0, "lcmp_decide": 0}
+    assert ops.counts() == {"cong_update": 0, "lcmp_decide": 0,
+                            "qsr_int8": 0, "qsr_dequant": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -216,3 +217,88 @@ def test_cuda_empty_inputs_launch_nothing(cuda):
                              torch.zeros(0, dtype=torch.int32, device=cuda), 0, tb)
     assert cc.shape == (0,)
     assert ops.counts() == before
+
+
+# ------------------------------------------------- qsr_int8 on the card (cuda)
+def _qsr_case(n, dev, seed=0):
+    from repro_torch.dist import compress
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * rng.choice([1e-3, 1.0, 100.0], n)).astype(np.float32)
+    x[:1024] = 0.0                                   # a zero block
+    if n > 2048:
+        x[1024 + 5] = -np.abs(x[1024:2048]).max() * 2  # an element at -amax
+        x[1024 + 9] = -x[1024 + 5]                     # and one at +amax
+    return (torch.from_numpy(x).to(dev),
+            compress.rand_bits(n, seed + 11, salt=1, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 1 << 16, 3 * 1024 * 1000, 1 << 24])
+def test_cuda_qsr_int8_and_dequant_bit_exact(cuda, n):
+    x, bits = _qsr_case(n, cuda, n % 7)
+    before = ops.counts()
+    q, s = ops.qsr_int8(x, bits)
+    qp, sp = ref.qsr_int8_ref(x, bits)
+    y = ops.qsr_dequant(q, s)
+    yp = ref.qsr_dequant_ref(qp, sp)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    assert torch.equal(y, yp)
+    assert (q[:1024] == 0).all() and s[0] == 0
+    if n > 2048:        # at -amax and +amax: the clip edge (or one step in)
+        assert int(q[1024 + 5]) in (-127, -126) and int(q[1024 + 9]) in (126, 127)
+    after = ops.counts()
+    assert after["qsr_int8"] == before["qsr_int8"] + 1
+    assert after["qsr_dequant"] == before["qsr_dequant"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_qsr_unbiased(cuda):
+    from repro_torch.dist import compress
+    n = 2048
+    x = torch.zeros(n, device=cuda)
+    x[1024:] = 0.3
+    acc = torch.zeros(n, dtype=torch.float64, device=cuda)
+    for seed in range(64):
+        q, s = ops.qsr_int8(x, compress.rand_bits(n, seed, device=cuda))
+        acc += ops.qsr_dequant(q, s).double()
+    acc /= 64
+    assert (acc[:1024] == 0).all()
+    assert float((acc[1024:] - 0.3).abs().max()) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_qsr_checks_inputs(cuda):
+    x = torch.zeros(2048, device=cuda)
+    bits = torch.zeros(2048, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rand_bits"):
+        ops.qsr_int8(x, bits.to(torch.int64))
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        ops.qsr_int8(x[:1000], bits[:1000])
+    with pytest.raises(ValueError, match="misaligned"):
+        ops.qsr_int8(torch.zeros(1025, device=cuda)[1:], bits[:1024])
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops.qsr_int8(torch.zeros(4096, device=cuda)[::2], bits)
+    with pytest.raises(ValueError, match="scales"):
+        ops.qsr_dequant(torch.zeros(2048, dtype=torch.int8, device=cuda),
+                        torch.zeros(3, device=cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_pod_reduce_int8_equals_cpu(cuda):
+    """The whole int8 pod reduce is exact arithmetic around the kernels
+    (the same bits, bit-exact kernels, a mean of two), so the card gives
+    the CPU's result bit for bit, through the kernels."""
+    from repro_torch.dist import lcmp_collectives as plc
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3 * 65_536 + 123)).astype(np.float32))
+    ax = plc.PodAxis("pod", 2)
+    want = plc.lcmp_pod_reduce({"g": g}, ax, compress=True)["g"]
+    before = ops.counts()
+    got = plc.lcmp_pod_reduce({"g": g.to(cuda)}, ax, compress=True)["g"]
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    after = ops.counts()
+    assert after["qsr_int8"] - before["qsr_int8"] == 4        # 2 pods x 2 legs
+    assert after["qsr_dequant"] - before["qsr_dequant"] == 3  # 2 partials + gather
+    plc._TELEMETRY.reset()
