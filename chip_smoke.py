@@ -10,16 +10,22 @@ the script exits non-zero and prints no result line. Phases:
 2. build: the three CUDA sources compiled for sm_90a from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel), with
    ptxas registers and spills;
-3. kernel_check: each kernel against its plain PyTorch version on the
-   card, bit for bit, at the main path's shapes (testbed8 and wan2000)
-   and at bulk shapes, with CUDA-event times and byte bounds; a
+3. kernel_check: each kernel entry against its plain PyTorch version
+   on the card, bit for bit, at the main path's shapes (testbed8 and
+   wan2000, and geo's 8-hop paths) and at bulk shapes, with CUDA-event
+   times, host time per call and byte bounds. The fused ``monitor_tick``
+   and ``route_arrivals`` run from random states (dead links, negative
+   ring offsets, all-pad rows, flow 0 among pads, the congestion
+   fallback) and must leave every flow they do not route untouched; a
    ``lcmp_decide`` call with 9 candidates must raise on the card;
 4. run: the main path through ``run_experiment`` (testbed8 and wan2000,
    lcmp and ecmp): FCT slowdown, completion, wall time, peak memory and
-   the kernels' launch counts, which must show the path went through the
-   kernels; the reference's policy orderings must hold;
+   the kernels' launch counts, which must show one ``monitor_tick`` and
+   one ``route_arrivals`` launch a step; the reference's policy
+   orderings must hold;
 5. profile: where a testbed8 lcmp step's time goes (torch.profiler):
-   wall and device-busy time per step, idle share, kernels per step;
+   wall and device-busy time per step, idle share, kernels per step, the
+   two fused kernels' device time;
 6. device_vs_cpu: testbed8 lcmp run on the card and on the CPU (plain
    versions) must route the same flows the same way;
 7. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
@@ -37,6 +43,7 @@ wire-leg sizes.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -58,6 +65,9 @@ TESTBED8 = dict(topology="testbed8", load=0.5, duration_us=400_000)
 WAN2000 = dict(topology="wan2000:dcs=24,segs=2,chords=12", pairs="main",
                load=0.5, bg_load=0.25, cap_scale=0.0625, duration_us=400_000)
 WORLDS = {"testbed8": TESTBED8, "wan2000": WAN2000}
+# the kernel checks also take geo, whose paths have the most hops (H = 8)
+GEO = dict(topology="geo", load=0.5, duration_us=100_000)
+CHECK_WORLDS = {**WORLDS, "geo": GEO}
 # the JAX package's results on the same specs (p50, p99, completed,
 # offered), computed on the CPU; the port must land within the bands
 REFERENCE = {("testbed8", "lcmp"): (13.27, 87.80, 3124, 3134),
@@ -66,6 +76,12 @@ REFERENCE = {("testbed8", "lcmp"): (13.27, 87.80, 3124, 3134),
              ("wan2000", "ecmp"): (3.491, 52.41, 16737, 16745)}
 P50_BAND, P99_BAND, COMPLETED_BAND = 0.03, 0.10, 0.01
 BULK = 1 << 20
+# the route's bulk shape: 4096 arrival slots over 2^20 links
+ROUTE_BULK = dict(A=4096, T=4, L=BULK, NPAIR=4096, K=8, NP=1 << 16, H=8,
+                  ring=16)
+# the per-flow fields the route writes
+FLOW_FIELDS = ("flow_path", "remaining", "rate", "cc_target", "active",
+               "extra_wait", "rtt_steps", "route_step")
 HASH_EDGES = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
 
 # The train phase: qwen3-4b (configs/qwen3_4b.py) at full width, with the
@@ -177,16 +193,18 @@ def phase_build() -> dict:
 
 
 def main_path_shapes(dev) -> dict:
-    """(ports L, arrivals per step A, candidates K) and the switch tables
-    of each main-path world, from the port's own build."""
+    """(ports L, arrivals per step A, candidates K, hops H), the switch
+    tables, arrays, initial state and config of each checked world, from
+    the port's own build."""
     from repro_torch.netsim import experiment as pexp
     from repro_torch.netsim import fluid
     out = {}
-    for name, kw in WORLDS.items():
+    for name, kw in CHECK_WORLDS.items():
         _, table, flows, cfg = pexp.build_experiment(pexp.ExpSpec(**kw))
-        arrs, _ = fluid.build(table, flows, cfg, device=dev)
+        arrs, st = fluid.build(table, flows, cfg, device=dev)
         out[name] = dict(L=arrs.link_cap.shape[0], A=arrs.arrivals.shape[1],
-                         K=arrs.pair_cand.shape[1], tables=arrs.tables)
+                         K=arrs.pair_cand.shape[1], H=arrs.path_links.shape[1],
+                         tables=arrs.tables, arrs=arrs, state=st, cfg=cfg)
     return out
 
 
@@ -248,6 +266,346 @@ def check_lcmp_decide(dev, F: int, P: int, label: str, iters: int) -> dict:
     # + 1) candidate bytes, a 4-byte result
     b = bound(F * (4 + 9 * P + 4))
     return dict(shape=label, F=F, P=P, max_abs_err=err, **tm, **b)
+
+
+def random_state(flat: dict, rng, kind: str) -> dict:
+    """A random engine state of a world, as a flat dict of numpy arrays
+    in ``netsim.carry``'s layout, made from that world's state ``flat``:
+    link queues (some exact multiples of a cell, some just below), the
+    ``hist_c`` ring, the congestion registers (negative trends too),
+    ``c_cong`` and the per-flow fields, all drawn from ``rng``. ``kind``:
+    ``"live"`` keeps every link up, ``"dead"`` takes about two links in
+    five down (so some candidates are invalid and, where flows come from
+    several pairs, some flows have none), ``"cut"`` takes every link down
+    (no flow has a candidate: nothing may be written), ``"fallback"``
+    fills the ring with 230-255 (every lcmp decision falls back to rank
+    0)."""
+    s = dict(flat)
+    L, R = s["hist_c"].shape
+    F = s["flow_path"].shape[0]
+    cells = rng.integers(0, 1 << 16, L)
+    frac = rng.choice([0.0, 0.0, 1023.75, 512.5, -0.25], L)
+    s["q_bytes"] = np.maximum(cells * 1024.0 + frac, 0.0).astype(np.float32)
+    lo = 230 if kind == "fallback" else 0
+    s["hist_c"] = rng.integers(lo, 256, (L, R)).astype(np.int32)
+    s["link_alive"] = rng.random(L) >= {"dead": 0.4, "cut": 1.0}.get(kind, 0.0)
+    s["c_cong"] = rng.integers(0, 256, L).astype(np.int32)
+    for reg, (a, b) in (("queue_cur", (0, 1 << 16)), ("queue_prev", (0, 1 << 16)),
+                        ("trend", (-(1 << 14), 1 << 14)), ("dur_cnt", (0, 64)),
+                        ("last_sample", (0, 1 << 20))):
+        s["cong." + reg] = rng.integers(a, b, L).astype(np.int32)
+    s["flow_path"] = rng.integers(-1, 64, F).astype(np.int32)
+    for name in ("remaining", "rate", "cc_target", "extra_wait"):
+        s[name] = (rng.random(F) * 1e6).astype(np.float32)
+    s["active"] = rng.random(F) < 0.5
+    s["rtt_steps"] = rng.integers(1, 100, F).astype(np.int32)
+    s["route_step"] = rng.integers(0, 4000, F).astype(np.int32)
+    return s
+
+
+def check_rows(arrivals: np.ndarray, max_sig: int) -> list:
+    """Rows of ``arrivals`` (T, A) that a route check runs: flow 0's
+    (whose other slots may be pads), the first rows with flows below the
+    largest signal delay (negative ring offsets), the row with the most
+    arrivals, the last row with flows, and an all-pad row if any."""
+    has = arrivals >= 0
+    busy = np.nonzero(has.any(1))[0]
+    rows = {int(np.nonzero((arrivals == 0).any(1))[0][0]),
+            int(np.argmax(has.sum(1))), int(busy[-1])}
+    rows |= {int(t) for t in busy[busy < max_sig][:3]}
+    rows |= {int(t) for t in np.nonzero(~has.any(1))[0][:1]}
+    return sorted(rows)
+
+
+def stranded_row(ar, st) -> int:
+    """The arrival row of the first flow that has no valid candidate in
+    state ``st`` (every candidate crosses a dead link), or -1."""
+    from repro_torch.kernels import ref
+    _, _, valid = ref.candidate_view(ar.f_pair, st, ar)
+    stranded = torch.nonzero(~valid.any(1)).flatten()
+    if stranded.numel() == 0:
+        return -1
+    return int(torch.nonzero((ar.arrivals == stranded[0]).any(1))[0, 0])
+
+
+def clone_state(st):
+    """A copy of a ``SimState`` whose tensors the kernels may write."""
+    import dataclasses
+
+    from repro_torch.core.cong import CongState
+    cong = CongState(**{f.name: getattr(st.cong, f.name).clone()
+                        for f in dataclasses.fields(CongState)})
+    return dataclasses.replace(st, cong=cong, **{
+        f.name: getattr(st, f.name).clone() for f in dataclasses.fields(st)
+        if f.name != "cong"})
+
+
+def state_err(a, b, names) -> float:
+    """The largest difference over the named tensors of two states."""
+    return max(float((getattr(a, n).double() - getattr(b, n).double())
+                     .abs().max()) if getattr(a, n).numel() else 0.0
+               for n in names)
+
+
+def route_bound(ar, st, t: int, policy: str, out) -> dict:
+    """The bytes route_arrivals must move for row ``t`` from state
+    ``st``, each element read once: the row; the arriving flows' pair,
+    id and size; their pairs' candidate rows; each distinct candidate
+    path's hop links (for lcmp also its signal delays, C_path and ring
+    cells); the liveness of the links those paths cross; the chosen
+    paths' links' queues and capacities, delay and rate; and 29 bytes
+    written per routed flow (``out``: the plain version's state after
+    the row)."""
+    from repro_torch.kernels import ref
+    arr = {n: getattr(ar, n).cpu().numpy() for n in (
+        "arrivals", "f_pair", "pair_cand", "path_links", "path_sig_delay")}
+    row = arr["arrivals"][t]
+    flows = row[row >= 0]
+    K, H = arr["pair_cand"].shape[1], arr["path_links"].shape[1]
+    ring = st.hist_c.shape[1]
+    nbytes = 4 * row.size + 16 * flows.size
+    pairs = np.unique(arr["f_pair"][flows])
+    nbytes += 4 * K * pairs.size
+    cand = np.unique(arr["pair_cand"][pairs])
+    cand = cand[cand >= 0]
+    hops = arr["path_links"][cand]
+    nbytes += 4 * H * cand.size + np.unique(hops[hops >= 0]).size
+    if policy == "lcmp":
+        slots = (t - arr["path_sig_delay"][cand]) % ring
+        cells = np.unique((hops * ring + slots)[hops >= 0])
+        nbytes += 4 * H * cand.size + 4 * cand.size + 4 * cells.size
+    _, _, valid = ref.candidate_view(ar.f_pair[torch.from_numpy(flows).to(
+        ar.f_pair.device).long()], st, ar)
+    routed = flows[valid.any(1).cpu().numpy()]
+    paths = np.unique(out.flow_path.cpu().numpy()[routed])
+    links = arr["path_links"][paths]
+    nbytes += 8 * np.unique(links[links >= 0]).size + 8 * paths.size
+    nbytes += 29 * routed.size
+    return bound(int(nbytes))
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time per call of ``fn``, in microseconds, over ``calls``
+    calls that only enqueue work (the device work is synchronised after
+    the clock stops, and the queue is far from full)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def check_route(dev, ar, st0, policy: str, label: str, iters: int, select,
+                dt_us: int, rows: list) -> dict:
+    """route_arrivals against its plain version from state ``st0``, row
+    by row: every field the kernel writes, and every flow it must not
+    write, equal bit for bit; with ``iters``, the kernel and its plain
+    version are timed on the row with the most arrivals."""
+    from repro_torch.kernels import ops, ref
+    st_k, st_p = clone_state(st0), st0
+    before = ops.counts()["route_arrivals"]
+    err, routed, dropped, fallback, dead = 0.0, 0, 0, 0, 0
+    for t in rows:
+        ops.route_arrivals(t, st_k, ar, policy, select, dt_us)
+        st_p = ref.route_arrivals_ref(t, st_p, ar, policy, select, dt_us)
+        torch.cuda.synchronize()
+        err = max(err, state_err(st_k, st_p, FLOW_FIELDS))
+        row = ar.arrivals[t]
+        flows = row[row >= 0].long()
+        cand, hop, valid = ref.candidate_view(ar.f_pair[flows], st_p, ar)
+        routed += int(valid.any(1).sum())
+        dropped += int((~valid.any(1)).sum())
+        dead += int((~valid & (cand >= 0)).sum())
+        if policy == "lcmp" and flows.numel():
+            _, c_cong = ref.lcmp_scores(t, cand, hop, st_p, ar)
+            low = torch.where(valid, c_cong, 256).amin(1)
+            fallback += int(((low >= select.cong_fallback) & valid.any(1)).sum())
+    require(err == 0, f"route_arrivals {label}: kernel equals plain, written "
+            f"and unwritten fields (err {err})")
+    require(ops.counts()["route_arrivals"] == before + len(rows),
+            f"route_arrivals {label}: one launch a row, all-pad rows too")
+    out = dict(shape=label, rows=rows, routed=routed, no_candidate=dropped,
+               dead_candidates=dead, fallback=fallback, max_abs_err=err)
+    if iters:
+        full = int(np.argmax((ar.arrivals >= 0).sum(1).cpu().numpy()))
+        launch = ops.RouteArrivals(ar, st_k, policy, select, dt_us)
+        # host time per call: with the queues and flow fields new at
+        # every call (two states in turn: every tensor is checked, more
+        # than the main path's step, which keeps four of the nine) and
+        # with the same ones (none is checked again)
+        turn = itertools.cycle([st_k, clone_state(st_k)])
+        out.update(timed_row=full, **timings(
+            lambda: launch(full, st_k),
+            lambda: ref.route_arrivals_ref(full, st_p, ar, policy, select, dt_us),
+            iters), host_us=host_us(lambda: launch(full, next(turn))),
+            host_us_same_tensors=host_us(lambda: launch(full, st_k)),
+            **route_bound(ar, st_p, full, policy,
+                          ref.route_arrivals_ref(full, st_p, ar, policy,
+                                                 select, dt_us)))
+    return out
+
+
+def check_monitor(dev, tables, label: str, iters: int) -> dict:
+    """monitor_tick against its plain version over 6 ticks from random
+    registers: queues in bytes (exact cells, cells minus a fraction,
+    drains), registers, c_cong and the ring slot bit for bit; with
+    ``iters``, the launcher and the plain version are then timed."""
+    from repro_torch.core.cong import CongParams, CongState
+    from repro_torch.kernels import ops, ref
+    n = tables.trend_thresh.shape[0]
+    rng = np.random.default_rng(n + 1)
+    ring = 8
+    init = {r: torch.from_numpy(rng.integers(a, b, n).astype(np.int32)).to(dev)
+            for r, (a, b) in (("queue_cur", (0, 1 << 16)),
+                              ("queue_prev", (0, 1 << 16)),
+                              ("trend", (-(1 << 14), 1 << 14)),
+                              ("dur_cnt", (0, 64)), ("last_sample", (0, 1 << 20)))}
+    st_k = CongState(**{r: v.clone() for r, v in init.items()})
+    st_p = CongState(**init)
+    hist_k = torch.zeros((n, ring), dtype=torch.int32, device=dev)
+    hist_p = torch.zeros_like(hist_k)
+    cc_k = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    params = CongParams()
+    before = ops.counts()["monitor_tick"]
+    err = 0
+    for tick in range(6):
+        hi = 1 << 21 if tick % 3 < 2 else 64          # drains: negative trends
+        cells = rng.integers(0, hi, n)
+        frac = rng.choice([0.0, 1023.75, 512.5, 0.25], n)
+        q = torch.from_numpy((cells * 1024.0 + frac).astype(np.float32)).to(dev)
+        st_k, cc_k = ops.monitor_tick(st_k, q, tick * 200, tables, params,
+                                      hist_k, tick % ring, cc_k)
+        st_p, cc_p = ref.monitor_tick_ref(st_p, q, tick * 200, tables, params,
+                                          hist_p, tick % ring)
+        torch.cuda.synchronize()
+        pairs = [(cc_k, cc_p), (hist_k, hist_p)] + [
+            (getattr(st_k, f), getattr(st_p, f)) for f in
+            ("queue_cur", "queue_prev", "trend", "dur_cnt", "last_sample")]
+        err = max(err, max(int((a.long() - b.long()).abs().max()) for a, b in pairs))
+    require(bool((st_p.trend < 0).any()), f"monitor_tick {label}: negative trends")
+    require(err == 0, f"monitor_tick {label}: kernel equals plain (err {err})")
+    require(ops.counts()["monitor_tick"] == before + 6,
+            f"monitor_tick {label}: one launch a tick")
+    out = dict(shape=label, N=n, max_abs_err=err)
+    if iters:
+        launch = ops.MonitorTick(st_k, cc_k, hist_k, tables, params, 0)
+        turn = itertools.cycle([q, q.clone()])   # new queues every step
+        out.update(**timings(
+            lambda: launch(q, 0, 0),
+            lambda: ref.monitor_tick_ref(st_p, q, 0, tables, params, hist_p, 0),
+            iters), host_us=host_us(lambda: launch(next(turn), 0, 0)),
+            # per port: reads the queue, queue_cur, trend, dur_cnt and a
+            # 15-int trend_thresh row; writes 5 registers, c_cong and one
+            # ring slot; the shared q_thresh and level_score once
+            **bound(n * (4 + 15 + 7) * 4 + (15 + 16) * 4))
+    return out
+
+
+def bulk_route_world(dev, seed: int = 0):
+    """A synthetic world at ``ROUTE_BULK``'s shape: random paths of 1-8
+    hops over 2^20 links, pairs of 1-8 candidates, 4096 arrival slots a
+    row (row 0 with 30% pads, row 1 all pads), 2% of links down, a
+    random ring and queues. Returns ``(ar, st)`` as ``SimArrays`` and
+    ``SimState``; the fields the route does not read are empty."""
+    import dataclasses
+
+    from repro_torch.core.cong import CongState
+    from repro_torch.netsim.engine import SimArrays, SimState
+    b = ROUTE_BULK
+    rng = np.random.default_rng(seed)
+    A, T, L, NP, H, K = b["A"], b["T"], b["L"], b["NP"], b["H"], b["K"]
+    F = A * T
+    arrivals = rng.permutation(F).reshape(T, A).astype(np.int32)
+    arrivals[0, rng.random(A) < 0.3] = -1
+    arrivals[1] = -1
+    path_links = rng.integers(0, L, (NP, H)).astype(np.int32)
+    path_links[np.arange(H) >= rng.integers(1, H + 1, NP)[:, None]] = -1
+    pair_cand = rng.integers(0, NP, (b["NPAIR"], K)).astype(np.int32)
+    pair_cand[np.arange(K) >= rng.integers(1, K + 1, b["NPAIR"])[:, None]] = -1
+    f_id = rng.integers(0, 1 << 32, F).astype(np.int64)
+    f_id[:len(HASH_EDGES)] = HASH_EDGES
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    empty = torch.empty(0, device=dev)
+    ar = SimArrays(**{f.name: empty for f in dataclasses.fields(SimArrays)})
+    ar = dataclasses.replace(
+        ar, arrivals=t(arrivals),
+        f_pair=t(rng.integers(0, b["NPAIR"], F).astype(np.int32)), f_id=t(f_id), f_size=t((rng.random(F) * 1e7).astype(np.float32)),
+        pair_cand=t(pair_cand), path_links=t(path_links),
+        path_sig_delay=t(rng.integers(0, 3 * b["ring"], (NP, H)).astype(np.int32)),
+        path_prop=t(rng.integers(50, 60_000, NP).astype(np.int32)),
+        path_cap=t((rng.random(NP) * 100 + 1).astype(np.float32)),
+        link_cap=t((rng.random(L) * 100 + 1).astype(np.float32)), tables=None)
+    st = SimState(cong=CongState.init(0, dev), **{
+        f.name: empty for f in dataclasses.fields(SimState) if f.name != "cong"})
+    st = dataclasses.replace(
+        st, q_bytes=t((rng.random(L) * 1e7).astype(np.float32)),
+        hist_c=t(rng.integers(0, 256, (L, b["ring"])).astype(np.int32)),
+        link_alive=t(rng.random(L) >= 0.02),
+        c_path=t(rng.integers(0, 256, NP).astype(np.int32)),
+        flow_path=t(rng.integers(-1, 64, F).astype(np.int32)),
+        remaining=t((rng.random(F) * 1e6).astype(np.float32)),
+        rate=t((rng.random(F) * 1e3).astype(np.float32)),
+        cc_target=t((rng.random(F) * 1e3).astype(np.float32)),
+        active=t(rng.random(F) < 0.5),
+        extra_wait=t((rng.random(F) * 1e3).astype(np.float32)),
+        rtt_steps=t(rng.integers(1, 100, F).astype(np.int32)),
+        route_step=t(rng.integers(0, 4000, F).astype(np.int32)))
+    return ar, st
+
+
+def world_state(dev, world: dict, kind: str, seed: int):
+    """``random_state`` of a built world, on ``dev``."""
+    from repro_torch.netsim import carry
+    arrs = carry.to_numpy(world["arrs"])
+    flat = random_state(carry.to_numpy(world["state"]),
+                        np.random.default_rng(seed), kind)
+    return carry.from_reference(arrs, flat, device=dev)
+
+
+def route_checks(dev, shapes) -> tuple:
+    """route_arrivals at each world's shape (lcmp and ecmp; live, dead,
+    cut and fallback states; the rows of ``check_rows``, and for the dead
+    state the row of a flow without candidates where there is one) and
+    at the bulk shape. Returns (timed rows, every case)."""
+    timed, cases = [], []
+    for name, w in shapes.items():
+        cfg = w["cfg"]
+        rows = check_rows(w["arrs"].arrivals.cpu().numpy(),
+                          int(w["arrs"].path_sig_delay.max()))
+        for i, kind in enumerate(("live", "dead", "cut", "fallback")):
+            ar, st = world_state(dev, w, kind, seed=17 * i + len(name))
+            extra = [stranded_row(ar, st)] if kind == "dead" else []
+            for policy in ("lcmp", "ecmp"):
+                r = check_route(dev, ar, st, policy,
+                                f"{name} {policy} {kind} A={w['A']} K={w['K']} "
+                                f"H={w['H']}", 200 if kind == "live" else 0,
+                                cfg.select, cfg.dt_us,
+                                sorted(set(rows + extra) - {-1}))
+                (timed if kind == "live" else cases).append(r)
+                if kind == "dead":
+                    require(r["dead_candidates"] > 0 and r["routed"] > 0,
+                            f"route {name} {policy}: dead links, flows routed")
+                if kind == "cut":
+                    require(r["routed"] == 0 and r["no_candidate"] > 0,
+                            f"route {name} {policy}: no flow has a candidate")
+                if kind == "fallback" and policy == "lcmp":
+                    require(r["fallback"] > 0, f"route {name}: the fallback ran")
+    ar, st = bulk_route_world(dev)
+    from repro_torch.core.select import SelectParams
+    for policy in ("lcmp", "ecmp"):
+        b = ROUTE_BULK
+        timed.append(check_route(
+            dev, ar, st, policy, f"bulk {policy} A={b['A']} L={b['L']} "
+            f"K={b['K']} H={b['H']}", 20, SelectParams(), 200,
+            list(range(b["T"]))))
+    return timed, cases
 
 
 def bulk_tables(dev, n: int):
@@ -361,14 +719,21 @@ def qsr_unbiased(dev) -> float:
 
 def phase_kernel_check(dev, shapes) -> dict:
     from repro_torch.dist import lcmp_collectives as lc
-    cong, decide = [], []
+    cong, decide, monitor = [], [], []
     for name, s in shapes.items():
-        cong.append(check_cong_update(dev, s["tables"], f"{name} N={s['L']}", 200))
-        decide.append(check_lcmp_decide(dev, s["A"], s["K"],
-                                         f"{name} F={s['A']} P={s['K']}", 200))
-    cong.append(check_cong_update(dev, bulk_tables(dev, BULK), f"bulk N={BULK}", 20))
+        monitor.append(check_monitor(dev, s["tables"], f"{name} N={s['L']}", 200))
+        if name in WORLDS:
+            cong.append(check_cong_update(dev, s["tables"], f"{name} N={s['L']}", 200))
+            decide.append(check_lcmp_decide(dev, s["A"], s["K"],
+                                             f"{name} F={s['A']} P={s['K']}", 200))
+    tables = bulk_tables(dev, BULK)
+    monitor.append(check_monitor(dev, tables, f"bulk N={BULK}", 20))
+    cong.append(check_cong_update(dev, tables, f"bulk N={BULK}", 20))
+    del tables
     for P in range(2, 9):
         decide.append(check_lcmp_decide(dev, BULK, P, f"bulk F={BULK} P={P}", 20))
+    route, route_cases = route_checks(dev, shapes)
+    torch.cuda.empty_cache()
     leg1, leg2 = lc.int8_leg_sizes(train_config().param_count(), TRAIN_PODS)
     quant, dequant = [], []
     for n, label, iters in ((leg1, f"train leg 1 N={leg1}", 3),
@@ -380,6 +745,8 @@ def phase_kernel_check(dev, shapes) -> dict:
         dequant.append(dr)
         torch.cuda.empty_cache()
     out = {"phase": "kernel_check", "library_ms": None,
+           "monitor_tick": monitor, "route_arrivals": route,
+           "route_arrivals_cases": route_cases,
            "cong_update": cong, "lcmp_decide": decide,
            "qsr_int8": quant, "qsr_dequant": dequant,
            "qsr_unbiased_max_err": qsr_unbiased(dev),
@@ -409,10 +776,10 @@ def run_main_path(dev, world: str, policy: str) -> dict:
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": counts, "reference": REFERENCE[(world, policy)]}
     emit(out)
-    require(counts["cong_update"] == cfg.num_steps,
-            f"{world}/{policy}: one cong_update launch per step")
-    if policy == "lcmp":
-        require(counts["lcmp_decide"] > 0, f"{world}/lcmp: lcmp_decide launched")
+    require(counts["monitor_tick"] == cfg.num_steps,
+            f"{world}/{policy}: one monitor_tick launch per step")
+    require(counts["route_arrivals"] == cfg.num_steps,
+            f"{world}/{policy}: one route_arrivals launch per step")
     require(np.isfinite(stats.slowdown).all() and (stats.slowdown >= 1).all(),
             f"{world}/{policy}: finite slowdowns")
     require(np.isfinite(util).all(), f"{world}/{policy}: finite utilization")
@@ -442,8 +809,8 @@ def phase_profile(dev, steps: int = 200) -> dict:
     """Where a step's time goes, on testbed8 lcmp after 300 warm-up
     steps: the wall time of ``steps`` plain steps, then ``steps`` more
     under ``torch.profiler`` for the device-busy time, the idle share,
-    kernels per step, the two hand-written kernels' device time and the
-    kernels that take the most of it."""
+    kernels per step, the two fused kernels' device time and the kernels
+    that take the most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.netsim import experiment as pexp
@@ -474,7 +841,7 @@ def phase_profile(dev, steps: int = 200) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     own = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) / steps
-           for k in ("cong_update", "lcmp_decide")}
+           for k in ("monitor_tick", "route_arrivals")}
     out = {"phase": "profile", "spec": "testbed8 lcmp load 0.5, from step 300",
            "steps": steps, "wall_ms_per_step": wall / steps * 1e3,
            "wall_ms_per_step_profiled": wall_prof / steps * 1e3,
@@ -487,7 +854,7 @@ def phase_profile(dev, steps: int = 200) -> dict:
     emit(out)
     require(len(kern) > 0, "profile: the step ran kernels on the device")
     require(all(v > 0 for v in own.values()),
-            "profile: both hand-written kernels ran in the step")
+            "profile: both fused kernels ran in the step")
     return out
 
 
@@ -791,23 +1158,35 @@ def phase_train_device_vs_cpu(dev) -> dict:
 
 
 def kernel_summary(checks: dict, runs: dict, train: dict) -> dict:
-    """The ``kernels`` line: each kernel at testbed8's main-path shape,
-    with its launches summed over the four main-path runs."""
-    meta = {"cong_update": ("src/repro_torch/kernels/csrc/cong_update.cu",
-                            "src/repro/kernels/cong_update.py:74"),
-            "lcmp_decide": ("src/repro_torch/kernels/csrc/lcmp_decide.cu",
-                            "src/repro/kernels/lcmp_decide.py:93")}
+    """The ``kernels`` line: every TPU kernel, each at its main-path
+    entry. The fluid pair's entries are the fused ``monitor_tick`` and
+    ``route_arrivals`` at testbed8's shape (lcmp, the row with the most
+    arrivals), with their launches summed over the four main-path runs;
+    the standalone ``cong_update`` and ``lcmp_decide`` entries, which the
+    main path no longer launches, stand beside them."""
+    meta = {"monitor_tick": ("src/repro_torch/kernels/csrc/cong_update.cu",
+                             "src/repro/kernels/cong_update.py:74", "cong_update"),
+            "route_arrivals": ("src/repro_torch/kernels/csrc/lcmp_decide.cu",
+                               "src/repro/kernels/lcmp_decide.py:93", "lcmp_decide")}
     out = []
-    for name, (source, replaces) in meta.items():
-        rows = checks[name]
-        main = rows[0]                  # testbed8, the fig5 world
+    for name, (source, replaces, standalone) in meta.items():
+        fields = kernel_fields(checks[name])
+        if name == "route_arrivals":
+            fields["max_abs_err"] = max(fields["max_abs_err"], max(
+                r["max_abs_err"] for r in checks["route_arrivals_cases"]))
+        alone = checks[standalone][0]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(r["launches"][name] for r in runs.values()),
             "launches_by_run": {f"{w}/{p}": r["launches"][name]
                                 for (w, p), r in runs.items()},
-            **kernel_fields(rows)})
+            **fields, "host_us": checks[name][0]["host_us"],
+            "standalone": {"name": standalone,
+                           "launches": sum(r["launches"][standalone]
+                                           for r in runs.values()),
+                           **{k: alone[k] for k in ("shape", "ms", "plain_ms",
+                                                    "call_ms", "bound_ms")}}})
     # the qsr pair at the train phase's first-leg shape (every pod's
     # padded gradient; the dequant of the received partials and of the
     # gathered mean have the same length), launched by the 3 int8 steps

@@ -19,6 +19,8 @@ import subprocess
 import time
 from typing import Dict
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
@@ -33,16 +35,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C signatures of the extern "C" launchers (see csrc/*.cu)
+# (the fused entries take their run's fixed pointers and parameters as
+# a pointer to a host struct, mirrored by a ctypes.Structure in the
+# wrapper, then what changes per step; the route's step tensors are a
+# second struct, whose fields change only when a tensor does)
 ARGTYPES = {
-    "cong_update_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cong_update_launch": [_P, _P, _I, _I, _P],
+    "monitor_tick_launch": [_P, _P, _I, _I, _P],
     "lcmp_decide_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "route_arrivals_launch": [_P, _P, _I, _P],
     "qsr_int8_launch": [_LL, _P, _P, _P, _P, _P],
     "qsr_dequant_launch": [_LL, _P, _P, _P, _P],
 }
 # the launchers each source's library exports
-LAUNCHERS = {"cong_update": ("cong_update_launch",),
-             "lcmp_decide": ("lcmp_decide_launch",),
+LAUNCHERS = {"cong_update": ("cong_update_launch", "monitor_tick_launch"),
+             "lcmp_decide": ("lcmp_decide_launch", "route_arrivals_launch"),
              "qsr_int8": ("qsr_int8_launch", "qsr_dequant_launch")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -126,6 +133,13 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def raw_stream(dev_index: int) -> int:
+    """The handle of the current CUDA stream of card ``dev_index``, as the
+    launchers take it (what ``torch.cuda.current_stream(dev).cuda_stream``
+    gives, without building a ``Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(dev_index)
 
 
 def check(err: int, name: str) -> None:

@@ -4,6 +4,10 @@ in ``ref.py``. Each wrapper runs the plain version for CPU tensors and
 its CUDA kernel for CUDA tensors; what the kernel does not take (on the
 card, ``lcmp_decide`` candidate sets wider than 8, or int64 random bits
 for ``qsr_int8``) raises.
+
+``monitor_tick`` and ``route_arrivals`` are the fluid engine's two fused
+phases; ``MonitorTick`` and ``RouteArrivals`` are their launchers for a
+run on the card (``netsim.fluid.make_step`` builds one of each).
 """
 from __future__ import annotations
 
@@ -11,6 +15,8 @@ from repro_torch.core.cong import CongParams
 from repro_torch.core.select import SelectParams
 from repro_torch.kernels import cong_update as _cong
 from repro_torch.kernels import lcmp_decide as _decide
+from repro_torch.kernels.cong_update import MonitorTick, monitor_tick
+from repro_torch.kernels.lcmp_decide import RouteArrivals, route_arrivals
 from repro_torch.kernels.qsr_int8 import qsr_dequant, qsr_int8
 
 
@@ -28,6 +34,7 @@ def cong_update(state, queue_cells, now_us, tables, params=None,
 
 _COUNTED = {"cong_update": _cong.cong_update,
             "lcmp_decide": _decide.lcmp_decide,
+            "monitor_tick": monitor_tick, "route_arrivals": route_arrivals,
             "qsr_int8": qsr_int8, "qsr_dequant": qsr_dequant}
 
 

@@ -4,8 +4,16 @@ Counterpart of ``repro/kernels/ref.py``: the reference semantics, built
 on the ported ``core`` so each kernel is pinned to the same decision
 path the engine uses. The kernel wrappers run these for CPU tensors;
 the CUDA kernels must match them bit for bit.
+
+Besides the TPU kernels' own functions, this holds the plain versions of
+the fluid engine's two fused phases, ``monitor_tick_ref`` and
+``route_arrivals_ref``, and the candidate view both the route and
+``netsim.engine.decide`` read. They take the engine's ``SimState`` and
+``SimArrays`` by field name and use the ring width of ``hist_c``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -13,7 +21,7 @@ from repro_torch.core import cong as congmod
 from repro_torch.core import select as selmod
 from repro_torch.core.cong import CongParams, CongState
 from repro_torch.core.select import SelectParams
-from repro_torch.core.tables import SwitchTables
+from repro_torch.core.tables import CELL_BYTES, SwitchTables
 
 
 def lcmp_decide_ref(flow_ids: torch.Tensor, c_path: torch.Tensor,
@@ -36,6 +44,125 @@ def cong_update_ref(state: CongState, queue_cells: torch.Tensor, now_us: int,
         # reprolint: ignore[RNG001] the caller passes slot = t % HIST
         hist_c[:, slot] = c_cong
     return st, c_cong
+
+
+def monitor_tick_ref(state: CongState, q_bytes: torch.Tensor, now_us: int,
+                     tables: SwitchTables, params: CongParams,
+                     hist_c: torch.Tensor, slot: int):
+    """The engine's monitor tick: link queues (float32 bytes) to cells,
+    then ``cong_update_ref`` with its ring write. Returns
+    ``(state', c_cong)``. ``CELL_BYTES`` is a power of two, so the cells
+    are exact whether the division is one or a multiply by 2**-10."""
+    qcells = (q_bytes / CELL_BYTES).to(torch.int32)
+    return cong_update_ref(state, qcells, now_us, tables, params, hist_c, slot)
+
+
+def path_cong_view(hist_c: torch.Tensor, path_links: torch.Tensor,
+                   sig_delay: torch.Tensor, t: int) -> torch.Tensor:
+    """Ingress-visible congestion of candidate paths at step ``t``: the
+    max over hops of each hop's quantized ``C_cong`` from the ``hist_c``
+    ring, read ``sig_delay`` steps late. ``path_links``/``sig_delay``
+    (..., H); returns (...,) int32. torch's ``%`` floors like jnp's, so
+    the negative offsets of early steps wrap to the ring's end."""
+    ring = hist_c.shape[-1]
+    lidx = torch.clamp_min(path_links, 0)
+    slot = (t - sig_delay) % ring
+    # the wrap is by the ring's own width, the engine's HIST, whose
+    # build() guard bounds every signal delay
+    # reprolint: ignore[RNG001]
+    v = hist_c.reshape(-1)[lidx * ring + slot]
+    return torch.where(path_links >= 0, v, 0).amax(-1)
+
+
+def candidate_view(pair: torch.Tensor, st, ar):
+    """The candidate paths of each pair in ``pair`` (N,): ``(cand (N, K)
+    path index or -1, hop (N, K, H) link index or -1, valid (N, K))``,
+    valid where the candidate exists and every hop is alive."""
+    cand = ar.pair_cand[pair]
+    hop = ar.path_links[torch.clamp_min(cand, 0)]
+    hop_alive = torch.where(hop >= 0, st.link_alive[torch.clamp_min(hop, 0)],
+                            True)
+    return cand, hop, (cand >= 0) & hop_alive.all(-1)
+
+
+def lcmp_scores(t: int, cand: torch.Tensor, hop: torch.Tensor, st, ar):
+    """``(c_path, c_cong)`` (N, K) of the candidates: the installed path
+    scores and the congestion view at step ``t``."""
+    cpad = torch.clamp_min(cand, 0)
+    return st.c_path[cpad], path_cong_view(st.hist_c, hop,
+                                           ar.path_sig_delay[cpad], t)
+
+
+def chosen_path(cand: torch.Tensor, k_idx: torch.Tensor) -> torch.Tensor:
+    """The global path index of candidate ``k_idx`` of each row, -1 where
+    ``k_idx`` is -1."""
+    chosen = cand.gather(1, torch.clamp_min(k_idx, 0).to(torch.int64)[:, None])
+    return torch.where(k_idx >= 0, chosen[:, 0], -1)
+
+
+def path_queue_wait(q_bytes: torch.Tensor, link_cap: torch.Tensor,
+                    hop: torch.Tensor) -> torch.Tensor:
+    """Standing-queue wait of paths with hops ``hop`` (N, H): the sum
+    over hops of queue bytes / link capacity, added hop by hop in hop
+    order (as the route kernel adds) with tensor-by-tensor IEEE
+    divisions, so the two agree bit for bit."""
+    h = torch.clamp_min(hop, 0)
+    term = torch.where(hop >= 0, q_bytes[h] / link_cap[h], 0.0)
+    qw = term[:, 0]
+    for j in range(1, term.shape[1]):
+        qw = qw + term[:, j]
+    return qw
+
+
+def route_arrivals_ref(t: int, st, ar, policy: str,
+                       select: SelectParams = SelectParams(),
+                       dt_us: int = 200):
+    """Route the flows arriving at step ``t`` (row ``t`` of
+    ``ar.arrivals``) with the plain decision of ``policy`` (``lcmp`` or
+    ``ecmp``). Returns a new state with the eight per-flow fields of the
+    routed flows written; pads and flows with no valid candidate change
+    nothing."""
+    idx = ar.arrivals[t]                        # (A,)
+    fidx = torch.clamp_min(idx, 0)
+    fid = ar.f_id[fidx]
+    cand, hop, valid = candidate_view(ar.f_pair[fidx], st, ar)
+    if policy == "lcmp":
+        k_idx = lcmp_decide_ref(fid, *lcmp_scores(t, cand, hop, st, ar), valid,
+                                select)
+    elif policy == "ecmp":
+        k_idx = selmod.ecmp_select(fid, valid)
+    else:
+        raise ValueError(f"route_arrivals: no plain route for policy {policy!r}")
+    chosen = torch.where(idx >= 0, chosen_path(cand, k_idx), -1)  # (A,)
+
+    ok = chosen >= 0
+    cpath_sel = torch.clamp_min(chosen, 0)
+    qw = path_queue_wait(st.q_bytes, ar.link_cap, ar.path_links[cpath_sel])
+    rtt = torch.clamp_min(
+        torch.div(2 * ar.path_prop[cpath_sel], dt_us, rounding_mode="floor"), 1)
+
+    F = st.flow_path.shape[0]
+    # pad slots and no-decision flows write to a scratch element past the
+    # end instead of a real flow (the reference's out-of-bounds drop):
+    # a pad write to flow 0 would race a real flow-0 arrival
+    tgt = torch.where(ok, fidx, F).to(torch.int64)
+
+    def upd(a, vals):
+        ext = torch.cat([a, a.new_empty((1,))])
+        ext.index_put_((tgt,), vals.to(a.dtype))
+        return ext[:F]
+
+    return dataclasses.replace(
+        st,
+        flow_path=upd(st.flow_path, chosen),
+        remaining=upd(st.remaining, ar.f_size[fidx]),
+        rate=upd(st.rate, ar.path_cap[cpath_sel]),
+        cc_target=upd(st.cc_target, ar.path_cap[cpath_sel]),
+        active=upd(st.active, ok),
+        extra_wait=upd(st.extra_wait, qw),
+        rtt_steps=upd(st.rtt_steps, rtt),
+        route_step=upd(st.route_step, torch.full_like(idx, t)),
+    )
 
 
 QSR_BLOCK = 1024           # elements per scale block

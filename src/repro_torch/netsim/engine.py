@@ -5,20 +5,25 @@ This slice ports what the fluid engine's main path runs: ``SimConfig``,
 ``SimArrays``, ``SimState``, ``build``, ``attach_link_caps``, the signal
 plane (``monitor_tick``, ``path_cong_view``), ``ctrl_tick`` (a no-op
 without schedules), routing at arrival (``decide`` for ``lcmp`` and
-``ecmp``, ``_route_arrivals``, ``_path_queue_wait``) and the DCQCN rate
-law (``_cc_update``). Everything else raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item (``check_slice``).
+``ecmp``, ``_route_arrivals``) and the DCQCN rate law (``_cc_update``).
+Everything else raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item (``check_slice``).
 
-On CUDA the per-step Pallas kernels of the reference are hand-written
-CUDA kernels: ``monitor_tick`` launches ``kernels.cong_update`` (which
-also writes the ``hist_c`` ring) and ``decide`` launches
-``kernels.lcmp_decide``. On the CPU the same calls run their plain
-versions.
+On CUDA each of the step's two signal-plane phases is one hand-written
+CUDA kernel: ``monitor_tick`` launches ``kernels.monitor_tick`` (queue
+cells, registers, ``c_cong`` and the ``hist_c`` ring write) and
+``_route_arrivals`` launches ``kernels.route_arrivals`` (candidates,
+congestion view, the lcmp or ecmp decision, queue wait and the per-flow
+writes); ``StepLaunchers`` holds their launchers for a run. ``decide``,
+kept for the later failover and re-decision callers, launches
+``kernels.lcmp_decide``. On the CPU the same calls run the plain
+versions of ``kernels.ref``.
 
 Differences from the reference, by design:
-- the step updates the state's history rings and congestion registers IN
-  PLACE (the reference's JAX arrays are immutable); a caller that needs
-  the pre-step state copies those tensors first;
+- on CUDA the step updates the state's history rings, congestion
+  registers, ``c_cong`` and the eight per-flow fields the route writes
+  IN PLACE (the reference's JAX arrays are immutable); a caller that
+  needs the pre-step state copies those tensors first;
 - flow ids (``SimArrays.f_id``) are int64 tensors holding uint32 values,
   since torch lacks uint32 arithmetic;
 - ``SwitchTables.high_water_level`` is a Python int.
@@ -37,8 +42,9 @@ from repro_torch.core import select as selmod
 from repro_torch.core.cong import CongParams, CongState
 from repro_torch.core.pathq import PathQParams, calc_path_quality
 from repro_torch.core.select import SelectParams
-from repro_torch.core.tables import CELL_BYTES, bootstrap_tables
-from repro_torch.kernels import ops
+from repro_torch.core.tables import bootstrap_tables
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ref import path_cong_view  # noqa: F401  (re-exported)
 from repro_torch.netsim.paths import PathTable
 from repro_torch.traffic.gen import FlowSet
 
@@ -331,28 +337,14 @@ def attach_link_caps(table: PathTable, topo) -> PathTable:
 
 
 # ---------------------------------------------------------- shared step parts
-def path_cong_view(hist_c: torch.Tensor, path_links: torch.Tensor,
-                   sig_delay: torch.Tensor, t: int) -> torch.Tensor:
-    """Ingress-visible congestion of candidate paths at step ``t``: the
-    max over hops of each hop's quantized ``C_cong`` from the ``hist_c``
-    ring, read ``sig_delay`` steps late. ``path_links``/``sig_delay``
-    (..., H); returns (...,) int32. torch's ``%`` floors like jnp's, so
-    the negative offsets of early steps wrap to the ring's end."""
-    lidx = torch.clamp_min(path_links, 0)
-    slot = (t - sig_delay) % HIST
-    v = hist_c.reshape(-1)[lidx * HIST + slot]
-    return torch.where(path_links >= 0, v, 0).amax(-1)
-
-
 def monitor_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
     """Switch monitor pass: the ``core.cong`` register pipeline on the
     current queue depths, its score landed in ``hist_c`` slot ``t``. One
-    ``kernels.cong_update`` launch on CUDA (registers and ring updated in
-    place)."""
-    qcells = (st.q_bytes / CELL_BYTES).to(torch.int32)
-    cong, c_cong = ops.cong_update(st.cong, qcells, t * cfg.dt_us, ar.tables,
-                                   cfg.congp, hist_c=st.hist_c,
-                                   slot=t % HIST)
+    ``kernels.monitor_tick`` launch on CUDA (registers, ``c_cong`` and
+    ring updated in place)."""
+    cong, c_cong = ops.monitor_tick(st.cong, st.q_bytes, t * cfg.dt_us,
+                                    ar.tables, cfg.congp, st.hist_c,
+                                    t % HIST, st.c_cong)
     return dataclasses.replace(st, cong=cong, c_cong=c_cong)
 
 
@@ -366,32 +358,15 @@ def ctrl_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
     return st
 
 
-def _path_queue_wait(st: SimState, ar: SimArrays, path_idx) -> torch.Tensor:
-    """Standing-queue wait of a path: sum over hops of queue bytes / link
-    capacity. ``path_idx`` must be pre-clamped >= 0."""
-    hop = ar.path_links[path_idx]
-    h = torch.clamp_min(hop, 0)
-    return torch.where(hop >= 0, st.q_bytes[h] / ar.link_cap[h], 0.0).sum(-1)
-
-
 def decide(t: int, fid, pair, st: SimState, ar: SimArrays, cfg: SimConfig,
            sig_step=None):
     """The policy-dispatched path decision. ``fid`` (N,) int64 hash keys;
     returns ``(k_idx, chosen)``, both (N,) int32, -1 where no candidate is
     valid. ``lcmp`` goes through ``kernels.lcmp_decide``."""
-    cand = ar.pair_cand[pair]                                   # (N, K)
-    cpad = torch.clamp_min(cand, 0)
-
-    # candidate liveness: every hop of the path must be alive
-    hop = ar.path_links[cpad]                                   # (N,K,H)
-    hop_alive = torch.where(hop >= 0, st.link_alive[torch.clamp_min(hop, 0)],
-                            True)
-    valid = (cand >= 0) & hop_alive.all(-1)
-
+    cand, hop, valid = ref.candidate_view(pair, st, ar)
     if cfg.policy == "lcmp":
-        c_path = st.c_path[cpad]
-        c_cong = path_cong_view(st.hist_c, hop, ar.path_sig_delay[cpad],
-                                t if sig_step is None else sig_step)
+        c_path, c_cong = ref.lcmp_scores(t if sig_step is None else sig_step,
+                                         cand, hop, st, ar)
         k_idx = ops.lcmp_decide(fid, c_path, c_cong, valid, cfg.select)
     elif cfg.policy == "ecmp":
         k_idx = selmod.ecmp_select(fid, valid)
@@ -399,51 +374,43 @@ def decide(t: int, fid, pair, st: SimState, ar: SimArrays, cfg: SimConfig,
         raise NotImplementedError(
             f"policy {cfg.policy!r} is not ported yet: ROADMAP.md queue A "
             "item 4")
-
-    chosen = cand.gather(1, torch.clamp_min(k_idx, 0).to(torch.int64)[:, None])
-    chosen = torch.where(k_idx >= 0, chosen[:, 0], -1)          # (N,)
-    return k_idx, chosen
+    return k_idx, ref.chosen_path(cand, k_idx)
 
 
 def _route_arrivals(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
-    """Decide paths for the batch of flows arriving this step."""
-    idx = ar.arrivals[t]                        # (A,)
-    is_flow = idx >= 0
-    fidx = torch.clamp_min(idx, 0)
-    pair = ar.f_pair[fidx]                      # (A,)
+    """Decide paths for the batch of flows arriving this step. One
+    ``kernels.route_arrivals`` launch on CUDA (the eight per-flow fields
+    written in place)."""
+    return ops.route_arrivals(t, st, ar, cfg.policy, cfg.select, cfg.dt_us)
 
-    _, chosen = decide(t, ar.f_id[fidx], pair, st, ar, cfg)
-    chosen = torch.where(is_flow, chosen, -1)                   # (A,)
 
-    ok = chosen >= 0
-    cpath_sel = torch.clamp_min(chosen, 0)
-    qw = _path_queue_wait(st, ar, cpath_sel)
-    rtt = torch.clamp_min(
-        torch.div(2 * ar.path_prop[cpath_sel], cfg.dt_us, rounding_mode="floor"),
-        1)
+class StepLaunchers:
+    """The fluid step's two fused phases on the card, one launcher each
+    for a run: ``monitor(t, st)`` and ``route(t, st)`` launch one kernel
+    each and return ``st``, whose tensors they update in place. A
+    launcher is built, and its fixed tensors checked, at the first step
+    and again only if the state's persistent tensors (registers,
+    ``c_cong``, rings, ``link_alive``, ``c_path``) are replaced."""
 
-    F = st.flow_path.shape[0]
-    # pad slots and no-decision flows write to a scratch element past the
-    # end instead of a real flow (the reference's out-of-bounds drop):
-    # a pad write to flow 0 would race a real flow-0 arrival
-    tgt = torch.where(ok, fidx, F).to(torch.int64)
+    def __init__(self, ar: SimArrays, cfg: SimConfig):
+        self.ar, self.cfg = ar, cfg
+        self.tick = self.router = None
 
-    def upd(a, vals):
-        ext = torch.cat([a, a.new_empty((1,))])
-        ext.index_put_((tgt,), vals.to(a.dtype))
-        return ext[:F]
+    def monitor(self, t: int, st: SimState) -> SimState:
+        if self.tick is None or not self.tick.bound_to(st.cong, st.c_cong,
+                                                        st.hist_c):
+            self.tick = ops.MonitorTick(
+                st.cong, st.c_cong, st.hist_c, self.ar.tables, self.cfg.congp,
+                (self.cfg.num_steps - 1) * self.cfg.dt_us)
+        self.tick(st.q_bytes, t * self.cfg.dt_us, t % HIST)
+        return st
 
-    return dataclasses.replace(
-        st,
-        flow_path=upd(st.flow_path, chosen),
-        remaining=upd(st.remaining, ar.f_size[fidx]),
-        rate=upd(st.rate, ar.path_cap[cpath_sel]),
-        cc_target=upd(st.cc_target, ar.path_cap[cpath_sel]),
-        active=upd(st.active, ok),
-        extra_wait=upd(st.extra_wait, qw),
-        rtt_steps=upd(st.rtt_steps, rtt),
-        route_step=upd(st.route_step, torch.full_like(idx, t)),
-    )
+    def route(self, t: int, st: SimState) -> SimState:
+        if self.router is None or not self.router.bound_to(st):
+            self.router = ops.RouteArrivals(self.ar, st, self.cfg.policy,
+                                            self.cfg.select, self.cfg.dt_us)
+        self.router(t, st)
+        return st
 
 
 def _cc_update(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,

@@ -5,12 +5,15 @@ The model is the reference's: flows are routed at arrival and pinned,
 share links max-min-proportionally (each link scales its flows by
 ``min(1, cap/offered)``), per-link byte queues integrate overload, the
 DCQCN rate law reacts to RTT-delayed queue signals from the history
-rings, and the LCMP switch runs inside the loop (``monitor_tick`` ->
-``kernels.cong_update``; arrivals -> ``decide`` ->
-``kernels.lcmp_decide``). The reference scans ``make_step`` under
+rings, and the LCMP switch runs inside the loop. On the card the monitor
+tick is one ``kernels.monitor_tick`` launch and the arrival routing one
+``kernels.route_arrivals`` launch, through launchers ``make_step`` keeps
+for the run (``engine.StepLaunchers``); on the CPU the same phases run
+their plain versions. The reference scans ``make_step`` under
 ``jax.jit``; here ``run`` calls the step once per ``dt`` from Python.
-The step mutates the state's rings and registers in place and returns
-the new state.
+The step mutates the state's rings and registers (on the card also
+``c_cong`` and the routed flows' fields) in place and returns the new
+state.
 """
 from __future__ import annotations
 
@@ -19,8 +22,9 @@ import dataclasses
 import torch
 
 from repro_torch.netsim.engine import (  # noqa: F401  (build & co. re-exported)
-    HIST, SimArrays, SimConfig, SimState, _cc_update, _route_arrivals,
-    attach_link_caps, build, check_slice, ctrl_tick, monitor_tick)
+    HIST, SimArrays, SimConfig, SimState, StepLaunchers, _cc_update,
+    _route_arrivals, attach_link_caps, build, check_slice, ctrl_tick,
+    monitor_tick)
 
 
 def make_step(ar: SimArrays, cfg: SimConfig):
@@ -29,14 +33,23 @@ def make_step(ar: SimArrays, cfg: SimConfig):
     L = ar.link_cap.shape[0]
     dt = float(cfg.dt_us)
     q_max = float(cfg.buffer_bytes * cfg.cap_scale)
+    if ar.link_cap.is_cuda:         # one launcher per fused phase and run
+        launch = StepLaunchers(ar, cfg)
+        tick, route = launch.monitor, launch.route
+    else:
+        def tick(t, st):
+            return monitor_tick(t, st, ar, cfg)
+
+        def route(t, st):
+            return _route_arrivals(t, st, ar, cfg)
 
     def step(st: SimState, t: int) -> SimState:
         # 1) switch monitor tick + 1b) control-plane refresh
-        st = monitor_tick(t, st, ar, cfg)
+        st = tick(t, st)
         st = ctrl_tick(t, st, ar, cfg)
 
         # 2) arrivals + routing decisions (the herd batch)
-        st = _route_arrivals(t, st, ar, cfg)
+        st = route(t, st)
 
         # 3) offered load per link (the reference's segment_sum)
         pf = st.flow_path

@@ -138,6 +138,7 @@ def test_lcmp_decide_wide_sets_run_the_plain_version_on_cpu(jref):
     want = jref.ref.lcmp_decide_ref(*inp)
     _eq(ops.lcmp_decide(*_torch(*inp)), want)
     assert ops.counts() == {"cong_update": 0, "lcmp_decide": 0,
+                            "monitor_tick": 0, "route_arrivals": 0,
                             "qsr_int8": 0, "qsr_dequant": 0}
 
 
@@ -302,3 +303,121 @@ def test_cuda_pod_reduce_int8_equals_cpu(cuda):
     assert after["qsr_int8"] - before["qsr_int8"] == 4        # 2 pods x 2 legs
     assert after["qsr_dequant"] - before["qsr_dequant"] == 3  # 2 partials + gather
     plc._TELEMETRY.reset()
+
+
+# -------------------------------- the fluid engine's fused phases (cuda)
+def _chip_smoke():
+    import os
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    return chip_smoke
+
+
+@pytest.fixture(scope="module")
+def cs():
+    """chip_smoke.py's route and monitor checks (torch and numpy only)."""
+    return _chip_smoke()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ports", [24, 152, 166, 1 << 20])
+def test_cuda_monitor_tick_matches_plain(cuda, cs, n_ports):
+    rng, rates, kw = _cong_world(n_ports, 2)
+    tb = bootstrap_tables(rates, device=cuda, **kw)
+    r = cs.check_monitor(cuda, tb, f"N={n_ports}", 0)
+    assert r["max_abs_err"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", ["testbed8", "wan2000", "geo"])
+@pytest.mark.parametrize("kind", ["live", "dead", "cut", "fallback"])
+@pytest.mark.parametrize("policy", ["lcmp", "ecmp"])
+def test_cuda_route_arrivals_matches_plain(cuda, cs, world, kind, policy):
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import fluid
+    _, table, flows, cfg = pexp.build_experiment(
+        pexp.ExpSpec(**cs.CHECK_WORLDS[world], policy=policy))
+    arrs, st = fluid.build(table, flows, cfg, device=cuda)
+    w = dict(arrs=arrs, state=st)
+    ar, st = cs.world_state(cuda, w, kind, seed=3)
+    rows = cs.check_rows(arrs.arrivals.cpu().numpy(),
+                         int(arrs.path_sig_delay.max()))
+    rows = sorted(set(rows) | {cs.stranded_row(ar, st)} - {-1})
+    r = cs.check_route(cuda, ar, st, policy, f"{world} {policy} {kind}", 0,
+                       cfg.select, cfg.dt_us, rows)
+    assert r["max_abs_err"] == 0
+    assert (r["routed"] == 0) == (kind == "cut")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["lcmp", "ecmp"])
+def test_cuda_route_arrivals_bulk_matches_plain(cuda, cs, policy):
+    from repro_torch.core.select import SelectParams
+    ar, st = cs.bulk_route_world(cuda)
+    r = cs.check_route(cuda, ar, st, policy, f"bulk {policy}", 0,
+                       SelectParams(), 200, [0, 1, 2, 3])
+    assert r["max_abs_err"] == 0 and r["no_candidate"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["lcmp", "ecmp"])
+def test_cuda_step_launches_each_fused_kernel_once(cuda, policy):
+    # the card's step: one monitor_tick and one route_arrivals launch a
+    # step, all-pad rows included, and the same routes as the CPU's
+    # plain step over the first steps
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import fluid
+    spec = pexp.ExpSpec(topology="testbed8", load=0.5, duration_us=20_000,
+                        policy=policy)
+    _, table, flows, cfg = pexp.build_experiment(spec)
+    paths = {}
+    for dev in (cuda, torch.device("cpu")):
+        arrs, st = fluid.build(table, flows, cfg, device=dev)
+        step = fluid.make_step(arrs, cfg)
+        before = ops.counts()
+        for t in range(40):
+            st = step(st, t)
+        after = ops.counts()
+        launched = {n: after[n] - before[n] for n in after}
+        want = 40 if dev.type == "cuda" else 0
+        assert launched["monitor_tick"] == launched["route_arrivals"] == want
+        assert launched["cong_update"] == launched["lcmp_decide"] == 0
+        paths[dev.type] = st.flow_path.cpu()
+    assert torch.equal(paths["cuda"], paths["cpu"])
+
+
+@pytest.mark.cuda
+def test_cuda_fused_launchers_check_inputs(cuda, cs):
+    from repro_torch.core.select import SelectParams
+    ar, st = cs.bulk_route_world(cuda)
+    with pytest.raises(ValueError, match="routes"):
+        ops.RouteArrivals(ar, st, "ucmp", SelectParams(), 200)
+    launch = ops.RouteArrivals(ar, st, "lcmp", SelectParams(), 200)
+    bad = dataclasses.replace(st, rate=st.rate.double())
+    with pytest.raises(ValueError, match="rate"):
+        launch(0, bad)
+    with pytest.raises(ValueError, match="step"):
+        launch(ar.arrivals.shape[0], st)
+    shared = dataclasses.replace(st, cc_target=st.rate)
+    with pytest.raises(ValueError, match="share memory"):
+        launch(0, shared)
+    wide = dataclasses.replace(ar, pair_cand=torch.zeros(
+        (4, 9), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="K <= 8"):
+        ops.RouteArrivals(wide, st, "lcmp", SelectParams(), 200)
+    tb = bootstrap_tables([100] * 4, device=cuda)
+    cong = CongState.init(4, cuda)
+    cc = torch.zeros(4, dtype=torch.int32, device=cuda)
+    hist = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    tick = ops.MonitorTick(cong, cc, hist, tb, CongParams(), 1000)
+    with pytest.raises(ValueError, match="q_bytes"):
+        tick(torch.zeros(4, dtype=torch.int32, device=cuda), 0, 0)
+    with pytest.raises(ValueError, match="outside the run"):
+        tick(torch.zeros(4, device=cuda), 2000, 0)
+    with pytest.raises(ValueError, match="overflows int32"):
+        ops.MonitorTick(cong, cc, hist, tb, CongParams(), 1 << 31)
