@@ -14,20 +14,27 @@ the script exits non-zero and prints no result line. Phases:
    on the card, bit for bit, at the main path's shapes (testbed8 and
    wan2000, and geo's 8-hop paths) and at bulk shapes, with CUDA-event
    times, host time per call and byte bounds. The fused ``monitor_tick``
-   and ``route_arrivals`` run from random states (dead links, negative
-   ring offsets, all-pad rows, flow 0 among pads, the congestion
-   fallback) and must leave every flow they do not route untouched; a
-   ``lcmp_decide`` call with 9 candidates must raise on the card;
-4. run: the main path through ``run_experiment`` (testbed8 and wan2000,
-   lcmp and ecmp): FCT slowdown, completion, wall time, peak memory and
-   the kernels' launch counts, which must show one ``monitor_tick`` and
-   one ``route_arrivals`` launch a step; the reference's policy
-   orderings must hold;
+   and ``route_arrivals`` (every law of ``LAWS``) run from random states
+   (dead links, a degrade schedule, negative ring offsets, all-pad rows,
+   flow 0 among pads, the congestion fallback) and must leave every flow
+   they do not route untouched; ``decide`` (every law) decides all of
+   wan2000's flows and 2^20 bulk flows (dead links, the fallback, the
+   failover's ring step -1, salted keys); a ``lcmp_decide`` call with 9
+   candidates must raise on the card;
+4. run: every run of ``RUNS`` through ``run_experiment`` (fig5's
+   testbed8 row with all its policies, wan2000 lcmp and ecmp, fig10's CC
+   laws, the failover, fig_multipath's fluid rows): FCT slowdown and
+   completion against ``REFERENCE`` within the bands, wall time, peak
+   memory and the kernels' launch counts, which must show one
+   ``monitor_tick`` and one ``route_arrivals`` launch a step, one
+   ``decide`` launch per trip step and re-decision epoch, no standalone
+   entry and no plain version; the reference's ``ORDERINGS`` must hold;
 5. profile: where a testbed8 lcmp step's time goes (torch.profiler):
    wall and device-busy time per step, idle share, kernels per step, the
    two fused kernels' device time;
-6. device_vs_cpu: testbed8 lcmp run on the card and on the CPU (plain
-   versions) must route the same flows the same way;
+6. device_vs_cpu: testbed8 lcmp and testbed8_failover lcmp (a trip at
+   50 ms) run on the card and on the CPU (plain versions) must route the
+   same flows the same way;
 7. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
    cut to 4 layers, one 4096-token sequence per pod, 2 pods on the card):
    3 steps with the int8 wire, then 1 f32-wire step from the state after
@@ -43,6 +50,8 @@ wire-leg sizes.
 """
 from __future__ import annotations
 
+import collections
+import inspect
 import itertools
 import json
 import math
@@ -68,17 +77,80 @@ WORLDS = {"testbed8": TESTBED8, "wan2000": WAN2000}
 # the kernel checks also take geo, whose paths have the most hops (H = 8)
 GEO = dict(topology="geo", load=0.5, duration_us=100_000)
 CHECK_WORLDS = {**WORLDS, "geo": GEO}
+# the other cells: fig10's CC laws (benchmarks/figures.py fig10), the
+# failover, and the fluid rows of fig_multipath (a degraded remote span
+# under a twice-stale signal plane; the degraded 2000 km WAN)
+FIG10 = dict(topology="testbed8", load=0.3, duration_us=400_000)
+FAILOVER = dict(topology="testbed8_failover:fail_ms=133", load=0.3,
+                duration_us=400_000)
+STALENESS = dict(topology="staleness:deg_ms=80", load=0.4, seed=1,
+                 sig_delay_scale=2.0, duration_us=400_000)
+WAN_DEG = dict(topology="wan2000:dcs=24,segs=2,chords=12,deg_ms=133,"
+               "deg_factor=0.25", pairs="main", load=0.5, bg_load=0.15, seed=9,
+               cap_scale=0.0625, duration_us=400_000)
+EPOCH = dict(redecide_period_us=10_000)      # fig_multipath's re-decision
+# every run of phase 4: name -> ExpSpec fields
+RUNS = {
+    "testbed8/lcmp": dict(TESTBED8, policy="lcmp"),
+    "testbed8/ecmp": dict(TESTBED8, policy="ecmp"),
+    "wan2000/lcmp": dict(WAN2000, policy="lcmp"),
+    "wan2000/ecmp": dict(WAN2000, policy="ecmp"),
+    # the rest of fig5's row (benchmarks/figures.py fig5_testbed_fct)
+    "testbed8/ucmp": dict(TESTBED8, policy="ucmp"),
+    "testbed8/redte": dict(TESTBED8, policy="redte"),
+    "testbed8/lcmp_w": dict(TESTBED8, policy="lcmp_w"),
+    "testbed8/wcmp": dict(TESTBED8, policy="wcmp"),
+    "testbed8/matchrdma": dict(TESTBED8, policy="matchrdma"),
+    "fig10/lcmp/dctcp": dict(FIG10, policy="lcmp", cc="dctcp"),
+    "fig10/lcmp/timely": dict(FIG10, policy="lcmp", cc="timely"),
+    "fig10/lcmp/hpcc": dict(FIG10, policy="lcmp", cc="hpcc"),
+    "failover/lcmp": dict(FAILOVER, policy="lcmp"),
+    "failover/ecmp": dict(FAILOVER, policy="ecmp"),
+    "staleness/fatpaths": dict(STALENESS, policy="fatpaths", **EPOCH),
+    "staleness/lcmp_r": dict(STALENESS, policy="lcmp_r", **EPOCH),
+    "staleness/amp": dict(STALENESS, policy="amp", n_subflows=4),
+    "wan2000_deg/lcmp": dict(WAN_DEG, policy="lcmp"),
+    "wan2000_deg/fatpaths": dict(WAN_DEG, policy="fatpaths", **EPOCH),
+}
 # the JAX package's results on the same specs (p50, p99, completed,
-# offered), computed on the CPU; the port must land within the bands
-REFERENCE = {("testbed8", "lcmp"): (13.27, 87.80, 3124, 3134),
-             ("testbed8", "ecmp"): (5.89, 112.58, 3134, 3134),
-             ("wan2000", "lcmp"): (2.115, 17.44, 16743, 16745),
-             ("wan2000", "ecmp"): (3.491, 52.41, 16737, 16745)}
+# offered), computed on the CPU and pinned by
+# tests/test_torch_fluid_runs.py; the port must land within the bands
+REFERENCE = {"testbed8/lcmp": (13.27, 87.80, 3124, 3134),
+             "testbed8/ecmp": (5.89, 112.58, 3134, 3134),
+             "wan2000/lcmp": (2.115, 17.44, 16743, 16745),
+             "wan2000/ecmp": (3.491, 52.41, 16737, 16745),
+             "testbed8/ucmp": (41.82, 50.00, 3134, 3134),
+             "testbed8/redte": (4.908, 46.74, 3133, 3134),
+             "testbed8/lcmp_w": (6.578, 21.11, 3134, 3134),
+             "testbed8/wcmp": (5.973, 42.94, 3134, 3134),
+             "testbed8/matchrdma": (6.020, 43.76, 3134, 3134),
+             "fig10/lcmp/dctcp": (2.823, 5.148, 1870, 1870),
+             "fig10/lcmp/timely": (4.162, 14.23, 1869, 1870),
+             "fig10/lcmp/hpcc": (2.883, 6.439, 1870, 1870),
+             "failover/lcmp": (4.362, 26.24, 1867, 1870),
+             "failover/ecmp": (5.996, 48.44, 1870, 1870),
+             "staleness/fatpaths": (6.037, 44.37, 2578, 2578),
+             "staleness/lcmp_r": (6.019, 45.62, 2578, 2578),
+             "staleness/amp": (48.78, 88.07, 2577, 2578),
+             "wan2000_deg/lcmp": (1.111, 5.294, 10335, 10337),
+             "wan2000_deg/fatpaths": (1.131, 14.77, 10337, 10337)}
+# orderings of the reference that each pair of runs must keep (a, b, stat):
+# stat of run a below run b's
+ORDERINGS = [("testbed8/lcmp", "testbed8/ecmp", "p99"),
+             ("wan2000/lcmp", "wan2000/ecmp", "p50"),
+             ("wan2000/lcmp", "wan2000/ecmp", "p99"),
+             ("failover/lcmp", "failover/ecmp", "p99"),
+             ("wan2000_deg/lcmp", "wan2000_deg/fatpaths", "p99")]
+# every law of the port's route and decide entries (engine.POLICY_CODES
+# but the sweep), and the laws that read the delayed congestion view
+LAWS = ("lcmp", "lcmp_w", "ecmp", "ucmp", "wcmp", "redte", "fatpaths", "amp",
+        "lcmp_r", "matchrdma")
+VIEW_LAWS = ("lcmp", "lcmp_w", "lcmp_r", "fatpaths", "matchrdma")
 P50_BAND, P99_BAND, COMPLETED_BAND = 0.03, 0.10, 0.01
 BULK = 1 << 20
 # the route's bulk shape: 4096 arrival slots over 2^20 links
 ROUTE_BULK = dict(A=4096, T=4, L=BULK, NPAIR=4096, K=8, NP=1 << 16, H=8,
-                  ring=16)
+                  ring=16, F=BULK)
 # the per-flow fields the route writes
 FLOW_FIELDS = ("flow_path", "remaining", "rate", "cc_target", "active",
                "extra_wait", "rtt_steps", "route_step")
@@ -279,7 +351,8 @@ def random_state(flat: dict, rng, kind: str) -> dict:
     several pairs, some flows have none), ``"cut"`` takes every link down
     (no flow has a candidate: nothing may be written), ``"fallback"``
     fills the ring with 230-255 (every lcmp decision falls back to rank
-    0)."""
+    0, every fatpaths decision spills). RedTE's split weights are drawn
+    last, 0-299 (zeros too)."""
     s = dict(flat)
     L, R = s["hist_c"].shape
     F = s["flow_path"].shape[0]
@@ -300,7 +373,23 @@ def random_state(flat: dict, rng, kind: str) -> dict:
     s["active"] = rng.random(F) < 0.5
     s["rtt_steps"] = rng.integers(1, 100, F).astype(np.int32)
     s["route_step"] = rng.integers(0, 4000, F).astype(np.int32)
+    s["redte_w"] = rng.integers(0, 300, s["redte_w"].shape).astype(np.int32)
     return s
+
+
+def random_degrade(arrays: dict, rng) -> dict:
+    """A world's arrays (flat, ``netsim.carry``'s layout) with a degrade
+    schedule drawn from ``rng``: about a third of the links degrade to
+    0.1, 0.25 or 0.5 of their capacity from a step in [0, 2000), so
+    ``matchrdma``'s effective capacities differ before and after."""
+    a = dict(arrays)
+    L = a["link_cap"].shape[0]
+    on = rng.random(L) < 0.35
+    a["link_deg_step"] = np.where(on, rng.integers(0, 2000, L),
+                                  a["link_deg_step"]).astype(np.int32)
+    a["link_deg_factor"] = np.where(on, rng.choice([0.1, 0.25, 0.5], L),
+                                    a["link_deg_factor"]).astype(np.float32)
+    return a
 
 
 def check_rows(arrivals: np.ndarray, max_sig: int) -> list:
@@ -347,33 +436,55 @@ def state_err(a, b, names) -> float:
                for n in names)
 
 
-def route_bound(ar, st, t: int, policy: str, out) -> dict:
-    """The bytes route_arrivals must move for row ``t`` from state
-    ``st``, each element read once: the row; the arriving flows' pair,
-    id and size; their pairs' candidate rows; each distinct candidate
-    path's hop links (for lcmp also its signal delays, C_path and ring
-    cells); the liveness of the links those paths cross; the chosen
-    paths' links' queues and capacities, delay and rate; and 29 bytes
-    written per routed flow (``out``: the plain version's state after
-    the row)."""
-    from repro_torch.kernels import ref
-    arr = {n: getattr(ar, n).cpu().numpy() for n in (
-        "arrivals", "f_pair", "pair_cand", "path_links", "path_sig_delay")}
-    row = arr["arrivals"][t]
-    flows = row[row >= 0]
+def candidate_bytes(arr: dict, pairs: np.ndarray, policy: str, sig_step: int,
+                    ring: int) -> int:
+    """The bytes ``policy``'s law must read for the candidates of the
+    distinct pairs ``pairs``, each element once: the pairs' candidate
+    rows; each distinct candidate path's hop links and the liveness of
+    the links they cross; for the view laws each path's signal delays
+    and the distinct ring cells they read; per path its C_path (lcmp
+    family), capacity (lcmp_w, ucmp, wcmp) or hop count (fatpaths); the
+    pairs' RedTE rows (redte); each link's capacity, degrade step and
+    factor (matchrdma). ``arr``: numpy arrays by field name."""
     K, H = arr["pair_cand"].shape[1], arr["path_links"].shape[1]
-    ring = st.hist_c.shape[1]
-    nbytes = 4 * row.size + 16 * flows.size
-    pairs = np.unique(arr["f_pair"][flows])
-    nbytes += 4 * K * pairs.size
+    nbytes = 4 * K * pairs.size
     cand = np.unique(arr["pair_cand"][pairs])
     cand = cand[cand >= 0]
     hops = arr["path_links"][cand]
-    nbytes += 4 * H * cand.size + np.unique(hops[hops >= 0]).size
-    if policy == "lcmp":
-        slots = (t - arr["path_sig_delay"][cand]) % ring
-        cells = np.unique((hops * ring + slots)[hops >= 0])
-        nbytes += 4 * H * cand.size + 4 * cand.size + 4 * cells.size
+    links = np.unique(hops[hops >= 0])
+    nbytes += 4 * H * cand.size + links.size
+    if policy in VIEW_LAWS:
+        slots = (sig_step - arr["path_sig_delay"][cand]) % ring
+        cells = np.unique((hops.astype(np.int64) * ring + slots)[hops >= 0])
+        nbytes += 4 * H * cand.size + 4 * cells.size
+    per_path = {"lcmp": 1, "lcmp_r": 1, "lcmp_w": 2, "ucmp": 1, "wcmp": 1,
+                "fatpaths": 1}.get(policy, 0)
+    nbytes += 4 * per_path * cand.size
+    if policy == "redte":
+        nbytes += 4 * K * pairs.size
+    if policy == "matchrdma":
+        nbytes += 12 * links.size
+    return nbytes
+
+
+def _numpy_arrays(ar) -> dict:
+    return {n: getattr(ar, n).cpu().numpy() for n in (
+        "arrivals", "f_pair", "pair_cand", "path_links", "path_sig_delay")}
+
+
+def route_bound(ar, st, t: int, policy: str, out) -> dict:
+    """The bytes route_arrivals must move for row ``t`` from state
+    ``st``, each element read once: the row; the arriving flows' pair,
+    id and size; ``candidate_bytes`` of their pairs; the chosen paths'
+    links' queues and capacities, delay and rate; and 29 bytes written
+    per routed flow (``out``: the plain version's state after the row)."""
+    from repro_torch.kernels import ref
+    arr = _numpy_arrays(ar)
+    row = arr["arrivals"][t]
+    flows = row[row >= 0]
+    nbytes = 4 * row.size + 16 * flows.size
+    nbytes += candidate_bytes(arr, np.unique(arr["f_pair"][flows]), policy, t,
+                              st.hist_c.shape[1])
     _, _, valid = ref.candidate_view(ar.f_pair[torch.from_numpy(flows).to(
         ar.f_pair.device).long()], st, ar)
     routed = flows[valid.any(1).cpu().numpy()]
@@ -382,6 +493,17 @@ def route_bound(ar, st, t: int, policy: str, out) -> dict:
     nbytes += 8 * np.unique(links[links >= 0]).size + 8 * paths.size
     nbytes += 29 * routed.size
     return bound(int(nbytes))
+
+
+def decide_bound(ar, st, policy: str, sig_step: int) -> dict:
+    """The bytes ``decide`` must move for every flow's decision: per
+    decision a 32-bit key, the pair and two 4-byte results, and
+    ``candidate_bytes`` of the distinct pairs."""
+    arr = _numpy_arrays(ar)
+    N = arr["f_pair"].size
+    return bound(int(16 * N + candidate_bytes(arr, np.unique(arr["f_pair"]),
+                                               policy, sig_step,
+                                               st.hist_c.shape[1])))
 
 
 def host_us(fn, calls: int = 2000) -> float:
@@ -420,7 +542,7 @@ def check_route(dev, ar, st0, policy: str, label: str, iters: int, select,
         routed += int(valid.any(1).sum())
         dropped += int((~valid.any(1)).sum())
         dead += int((~valid & (cand >= 0)).sum())
-        if policy == "lcmp" and flows.numel():
+        if policy in VIEW_LAWS and flows.numel():
             _, c_cong = ref.lcmp_scores(t, cand, hop, st_p, ar)
             low = torch.where(valid, c_cong, 256).amin(1)
             fallback += int(((low >= select.cong_fallback) & valid.any(1)).sum())
@@ -506,20 +628,22 @@ def check_monitor(dev, tables, label: str, iters: int) -> dict:
 
 
 def bulk_route_world(dev, seed: int = 0):
-    """A synthetic world at ``ROUTE_BULK``'s shape: random paths of 1-8
-    hops over 2^20 links, pairs of 1-8 candidates, 4096 arrival slots a
-    row (row 0 with 30% pads, row 1 all pads), 2% of links down, a
-    random ring and queues. Returns ``(ar, st)`` as ``SimArrays`` and
-    ``SimState``; the fields the route does not read are empty."""
+    """A synthetic world at ``ROUTE_BULK``'s shape: 2^20 flows, random
+    paths of 1-8 hops over 2^20 links, pairs of 1-8 candidates, 4096
+    arrival slots a row (row 0 with 30% pads, row 1 all pads), 2% of
+    links down, a random ring and queues, random capacities (some 0),
+    degrade steps and factors and RedTE weights. Returns ``(ar, st)`` as
+    ``SimArrays`` and ``SimState``; the fields the route and decide do
+    not read are empty."""
     import dataclasses
 
     from repro_torch.core.cong import CongState
     from repro_torch.netsim.engine import SimArrays, SimState
     b = ROUTE_BULK
     rng = np.random.default_rng(seed)
-    A, T, L, NP, H, K = b["A"], b["T"], b["L"], b["NP"], b["H"], b["K"]
-    F = A * T
-    arrivals = rng.permutation(F).reshape(T, A).astype(np.int32)
+    A, T, L, NP, H, K, F = (b["A"], b["T"], b["L"], b["NP"], b["H"], b["K"],
+                            b["F"])
+    arrivals = rng.permutation(F)[:A * T].reshape(T, A).astype(np.int32)
     arrivals[0, rng.random(A) < 0.3] = -1
     arrivals[1] = -1
     path_links = rng.integers(0, L, (NP, H)).astype(np.int32)
@@ -541,7 +665,13 @@ def bulk_route_world(dev, seed: int = 0):
         path_sig_delay=t(rng.integers(0, 3 * b["ring"], (NP, H)).astype(np.int32)),
         path_prop=t(rng.integers(50, 60_000, NP).astype(np.int32)),
         path_cap=t((rng.random(NP) * 100 + 1).astype(np.float32)),
-        link_cap=t((rng.random(L) * 100 + 1).astype(np.float32)), tables=None)
+        link_cap=t((rng.random(L) * 100 + 1).astype(np.float32)),
+        path_cap_gbps=t(rng.choice([0, 25, 40, 100, 400], NP).astype(np.int32)),
+        path_len=t((path_links >= 0).sum(1).astype(np.int32)),
+        link_cap_gbps=t(rng.choice([25, 40, 100, 400], L).astype(np.int32)),
+        link_deg_step=t(rng.integers(0, 2 * T, L).astype(np.int32)),
+        link_deg_factor=t(rng.choice([0.1, 0.25, 1.0], L).astype(np.float32)),
+        tables=None)
     st = SimState(cong=CongState.init(0, dev), **{
         f.name: empty for f in dataclasses.fields(SimState) if f.name != "cong"})
     st = dataclasses.replace(
@@ -556,24 +686,28 @@ def bulk_route_world(dev, seed: int = 0):
         active=t(rng.random(F) < 0.5),
         extra_wait=t((rng.random(F) * 1e3).astype(np.float32)),
         rtt_steps=t(rng.integers(1, 100, F).astype(np.int32)),
-        route_step=t(rng.integers(0, 4000, F).astype(np.int32)))
+        route_step=t(rng.integers(0, 4000, F).astype(np.int32)),
+        redte_w=t(rng.integers(0, 300, (b["NPAIR"], K)).astype(np.int32)))
     return ar, st
 
 
 def world_state(dev, world: dict, kind: str, seed: int):
-    """``random_state`` of a built world, on ``dev``."""
+    """``random_state`` of a built world, with ``random_degrade``'s
+    schedule in its arrays, on ``dev``."""
     from repro_torch.netsim import carry
-    arrs = carry.to_numpy(world["arrs"])
-    flat = random_state(carry.to_numpy(world["state"]),
-                        np.random.default_rng(seed), kind)
+    rng = np.random.default_rng(seed)
+    flat = random_state(carry.to_numpy(world["state"]), rng, kind)
+    arrs = random_degrade(carry.to_numpy(world["arrs"]), rng)
     return carry.from_reference(arrs, flat, device=dev)
 
 
 def route_checks(dev, shapes) -> tuple:
-    """route_arrivals at each world's shape (lcmp and ecmp; live, dead,
-    cut and fallback states; the rows of ``check_rows``, and for the dead
+    """route_arrivals at each world's shape (every law; live, dead, cut
+    and fallback states; the rows of ``check_rows``, and for the dead
     state the row of a flow without candidates where there is one) and
-    at the bulk shape. Returns (timed rows, every case)."""
+    at the bulk shape (lcmp and ecmp). Timed: lcmp and ecmp in every
+    world, the other laws at testbed8's shape, live states. Returns
+    (timed rows, every case)."""
     timed, cases = [], []
     for name, w in shapes.items():
         cfg = w["cfg"]
@@ -582,29 +716,104 @@ def route_checks(dev, shapes) -> tuple:
         for i, kind in enumerate(("live", "dead", "cut", "fallback")):
             ar, st = world_state(dev, w, kind, seed=17 * i + len(name))
             extra = [stranded_row(ar, st)] if kind == "dead" else []
-            for policy in ("lcmp", "ecmp"):
+            for policy in LAWS:
+                timed_case = kind == "live" and (
+                    policy in ("lcmp", "ecmp") or name == "testbed8")
                 r = check_route(dev, ar, st, policy,
                                 f"{name} {policy} {kind} A={w['A']} K={w['K']} "
-                                f"H={w['H']}", 200 if kind == "live" else 0,
+                                f"H={w['H']}", 200 if timed_case else 0,
                                 cfg.select, cfg.dt_us,
                                 sorted(set(rows + extra) - {-1}))
-                (timed if kind == "live" else cases).append(r)
+                (timed if timed_case else cases).append(r)
                 if kind == "dead":
                     require(r["dead_candidates"] > 0 and r["routed"] > 0,
                             f"route {name} {policy}: dead links, flows routed")
                 if kind == "cut":
                     require(r["routed"] == 0 and r["no_candidate"] > 0,
                             f"route {name} {policy}: no flow has a candidate")
-                if kind == "fallback" and policy == "lcmp":
-                    require(r["fallback"] > 0, f"route {name}: the fallback ran")
+                if kind == "fallback" and policy in VIEW_LAWS:
+                    require(r["fallback"] > 0, f"route {name} {policy}: the "
+                            "fallback ran")
     ar, st = bulk_route_world(dev)
     from repro_torch.core.select import SelectParams
-    for policy in ("lcmp", "ecmp"):
-        b = ROUTE_BULK
-        timed.append(check_route(
-            dev, ar, st, policy, f"bulk {policy} A={b['A']} L={b['L']} "
-            f"K={b['K']} H={b['H']}", 20, SelectParams(), 200,
-            list(range(b["T"]))))
+    b = ROUTE_BULK
+    for policy in LAWS:
+        r = check_route(dev, ar, st, policy, f"bulk {policy} A={b['A']} "
+                        f"L={b['L']} K={b['K']} H={b['H']}",
+                        20 if policy in ("lcmp", "ecmp") else 0,
+                        SelectParams(), 200, list(range(b["T"])))
+        (timed if policy in ("lcmp", "ecmp") else cases).append(r)
+    return timed, cases
+
+
+def check_decide(dev, ar, st, policy: str, label: str, iters: int, select,
+                 cases: list) -> dict:
+    """``decide`` against its plain version for every flow of ``ar``, at
+    each ``(t, sig_step, salted)`` of ``cases`` (salted: keys xor
+    fmix32(nonce), as the re-decision hashes): k_idx and chosen equal bit
+    for bit, one launch a case; with ``iters``, timed at the first case."""
+    from repro_torch.core.select import fmix32
+    from repro_torch.kernels import ops, ref
+    launch = ops.RouteArrivals(ar, st, policy, select, 200)
+    nonce = torch.arange(ar.f_id.shape[0], device=ar.f_id.device) % 5
+    salted = ar.f_id ^ fmix32(nonce)
+    before = ops.counts()["decide"]
+    err, decided, none = 0, 0, 0
+    for t, sig, salt in cases:
+        fid = salted if salt else ar.f_id
+        k, c = launch.decide(t, fid, ar.f_pair, sig)
+        kp, cp = ref.decide_ref(t, fid, ar.f_pair, st, ar, policy, select, sig)
+        torch.cuda.synchronize()
+        err = max(err, int((k.long() - kp.long()).abs().max()),
+                  int((c.long() - cp.long()).abs().max()))
+        decided += int((kp >= 0).sum())
+        none += int((kp < 0).sum())
+    require(err == 0, f"decide {label}: kernel equals plain (err {err})")
+    require(ops.counts()["decide"] == before + len(cases),
+            f"decide {label}: one launch a call")
+    out = dict(shape=label, N=int(ar.f_id.shape[0]), cases=cases,
+               decided=decided, no_candidate=none, max_abs_err=err)
+    if iters:
+        t, sig, _ = cases[0]
+        out.update(**timings(
+            lambda: launch.decide(t, ar.f_id, ar.f_pair, sig),
+            lambda: ref.decide_ref(t, ar.f_id, ar.f_pair, st, ar, policy,
+                                   select, sig), iters),
+            host_us=host_us(lambda: launch.decide(t, ar.f_id, ar.f_pair, sig)),
+            **decide_bound(ar, st, policy, sig))
+    return out
+
+
+def decide_checks(dev, shapes) -> tuple:
+    """``decide`` for every law over all of wan2000's flows (dead links,
+    a degrade schedule, and the fallback state) and over 2^20 flows of
+    the bulk world, at the failover's read (t = 0, ring step -1), a
+    mid-run step and salted keys. Timed: every law at wan2000's shape,
+    lcmp and ecmp at the bulk shape. Returns (timed rows, every case)."""
+    from repro_torch.core.select import SelectParams
+    timed, cases = [], []
+    w = shapes["wan2000"]
+    for i, kind in enumerate(("dead", "fallback")):
+        ar, st = world_state(dev, w, kind, seed=41 + i)
+        for policy in LAWS:
+            r = check_decide(dev, ar, st, policy,
+                             f"wan2000 {policy} {kind} N={w['arrs'].f_id.shape[0]} "
+                             f"K={w['K']} H={w['H']}", 200 if kind == "dead" else 0,
+                             w["cfg"].select, [(1500, 1499, False), (0, -1, False),
+                                               (1500, 1500, True)])
+            (timed if kind == "dead" else cases).append(r)
+            require(r["decided"] > 0, f"decide wan2000 {policy} {kind}: decided")
+            if kind == "dead":
+                require(r["no_candidate"] > 0,
+                        f"decide wan2000 {policy}: flows with no live candidate")
+    ar, st = bulk_route_world(dev)
+    b = ROUTE_BULK
+    for policy in LAWS:
+        r = check_decide(dev, ar, st, policy, f"bulk {policy} N={b['F']} "
+                         f"K={b['K']} H={b['H']}",
+                         20 if policy in ("lcmp", "ecmp") else 0, SelectParams(),
+                         [(2, 1, False), (0, -1, False), (3, 3, True)])
+        (timed if policy in ("lcmp", "ecmp") else cases).append(r)
     return timed, cases
 
 
@@ -734,6 +943,8 @@ def phase_kernel_check(dev, shapes) -> dict:
         decide.append(check_lcmp_decide(dev, BULK, P, f"bulk F={BULK} P={P}", 20))
     route, route_cases = route_checks(dev, shapes)
     torch.cuda.empty_cache()
+    decide_timed, decide_cases = decide_checks(dev, shapes)
+    torch.cuda.empty_cache()
     leg1, leg2 = lc.int8_leg_sizes(train_config().param_count(), TRAIN_PODS)
     quant, dequant = [], []
     for n, label, iters in ((leg1, f"train leg 1 N={leg1}", 3),
@@ -746,7 +957,8 @@ def phase_kernel_check(dev, shapes) -> dict:
         torch.cuda.empty_cache()
     out = {"phase": "kernel_check", "library_ms": None,
            "monitor_tick": monitor, "route_arrivals": route,
-           "route_arrivals_cases": route_cases,
+           "route_arrivals_cases": route_cases, "decide": decide_timed,
+           "decide_cases": decide_cases,
            "cong_update": cong, "lcmp_decide": decide,
            "qsr_int8": quant, "qsr_dequant": dequant,
            "qsr_unbiased_max_err": qsr_unbiased(dev),
@@ -757,51 +969,102 @@ def phase_kernel_check(dev, shapes) -> dict:
     return out
 
 
-def run_main_path(dev, world: str, policy: str) -> dict:
+class PlainCalls:
+    """Counts calls of the kernels' plain versions, every function that
+    ``kernels.ref`` defines, while active, so a run can show that none ran
+    on the card's path."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self.ref, self.saved, self.called = ref, {}, collections.Counter()
+        for name, fn in list(vars(ref).items()):
+            if inspect.isfunction(fn) and fn.__module__ == ref.__name__:
+                self.saved[name] = fn
+                setattr(ref, name, self._counting(name, fn))
+        return self
+
+    @property
+    def calls(self) -> int:
+        return sum(self.called.values())
+
+    def _counting(self, name, fn):
+        def counted(*a, **kw):
+            self.called[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ref, name, fn)
+
+
+def expected_decides(cfg) -> int:
+    """``decide`` launches a run makes: one per trip step, one per
+    re-decision epoch."""
+    from repro_torch.netsim import engine
+    T = cfg.num_steps
+    trips = {at // cfg.dt_us for _, at in cfg.fail_sched}
+    epochs = 0
+    if engine.wants_redecide(cfg):
+        epoch = max(cfg.redecide_period_us // cfg.dt_us, 1)
+        epochs = -(-T // epoch)
+    return len({s for s in trips if 0 <= s < T}) + epochs
+
+
+def run_main_path(dev, name: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.netsim import experiment as pexp
-    spec = pexp.ExpSpec(**WORLDS[world], policy=policy)
+    spec = pexp.ExpSpec(**RUNS[name])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
-    t0 = time.perf_counter()
-    stats, util, (_, _, flows, cfg, final) = pexp.run_experiment(spec, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        stats, util, (_, _, flows, cfg, final) = pexp.run_experiment(spec,
+                                                                     device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = ops.counts()
-    out = {"phase": "run", "world": world, "policy": policy,
+    decides = expected_decides(cfg)
+    out = {"phase": "run", "run": name, "policy": spec.policy, "cc": spec.cc,
            "p50": stats.p50, "p99": stats.p99, "completed": stats.completed,
            "offered": stats.offered, "steps": cfg.num_steps, "wall_s": wall,
            "steps_per_s": cfg.num_steps / wall,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "launches": counts, "reference": REFERENCE[(world, policy)]}
+           "launches": counts, "expected_decide": decides,
+           "plain_calls": plain.calls, "reference": REFERENCE[name]}
+    if spec.redecide_period_us:
+        out["route_nonce_max"] = int(final.route_nonce.max())
     emit(out)
     require(counts["monitor_tick"] == cfg.num_steps,
-            f"{world}/{policy}: one monitor_tick launch per step")
+            f"{name}: one monitor_tick launch per step")
     require(counts["route_arrivals"] == cfg.num_steps,
-            f"{world}/{policy}: one route_arrivals launch per step")
+            f"{name}: one route_arrivals launch per step")
+    require(counts["decide"] == decides,
+            f"{name}: one decide launch per trip step and epoch")
+    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+            f"{name}: the standalone entries are not on the path")
+    require(plain.calls == 0, f"{name}: no plain version ran on the card")
     require(np.isfinite(stats.slowdown).all() and (stats.slowdown >= 1).all(),
-            f"{world}/{policy}: finite slowdowns")
-    require(np.isfinite(util).all(), f"{world}/{policy}: finite utilization")
-    require(bool(torch.isfinite(final.q_bytes).all()), f"{world}/{policy}: finite queues")
-    r50, r99, rdone, roffered = REFERENCE[(world, policy)]
-    require(stats.offered == roffered == flows.num_flows,
-            f"{world}/{policy}: offered flows equal the reference's")
-    require(within(stats.p50, r50, P50_BAND), f"{world}/{policy}: p50 in band")
-    require(within(stats.p99, r99, P99_BAND), f"{world}/{policy}: p99 in band")
+            f"{name}: finite slowdowns")
+    require(np.isfinite(util).all(), f"{name}: finite utilization")
+    require(bool(torch.isfinite(final.q_bytes).all()), f"{name}: finite queues")
+    r50, r99, rdone, roffered = REFERENCE[name]
+    parents = int(flows.subflow_of.max()) + 1 if flows.subflow_of is not None \
+        else flows.num_flows
+    require(stats.offered == roffered == parents,
+            f"{name}: offered flows equal the reference's")
+    require(within(stats.p50, r50, P50_BAND), f"{name}: p50 in band")
+    require(within(stats.p99, r99, P99_BAND), f"{name}: p99 in band")
     require(abs(stats.completed - rdone) <= COMPLETED_BAND * roffered,
-            f"{world}/{policy}: completed in band")
+            f"{name}: completed in band")
     return out
 
 
 def phase_runs(dev) -> dict:
-    runs = {(w, p): run_main_path(dev, w, p)
-            for w in WORLDS for p in ("lcmp", "ecmp")}
-    tb = runs[("testbed8", "lcmp")], runs[("testbed8", "ecmp")]
-    require(tb[0]["p99"] < tb[1]["p99"], "testbed8: p99 lcmp < ecmp")
-    wan = runs[("wan2000", "lcmp")], runs[("wan2000", "ecmp")]
-    require(wan[0]["p50"] < wan[1]["p50"], "wan2000: p50 lcmp < ecmp")
-    require(wan[0]["p99"] < wan[1]["p99"], "wan2000: p99 lcmp < ecmp")
+    runs = {name: run_main_path(dev, name) for name in RUNS}
+    for a, b, stat in ORDERINGS:
+        require(runs[a][stat] < runs[b][stat], f"{stat}: {a} < {b}")
     return runs
 
 
@@ -858,9 +1121,12 @@ def phase_profile(dev, steps: int = 200) -> dict:
     return out
 
 
-def phase_device_vs_cpu(dev) -> dict:
+def device_vs_cpu(dev, kw: dict, label: str) -> dict:
+    """One 100 ms run on the card and on the CPU (plain versions): the
+    same paths for the flows of the first 500 steps, and the same
+    p50/p99/completions within the bands."""
     from repro_torch.netsim import experiment as pexp
-    spec = pexp.ExpSpec(**dict(TESTBED8, duration_us=100_000), policy="lcmp")
+    spec = pexp.ExpSpec(**dict(kw, duration_us=100_000))
     res = {}
     for d in (dev, torch.device("cpu")):
         t0 = time.perf_counter()
@@ -873,7 +1139,7 @@ def phase_device_vs_cpu(dev) -> dict:
     step = np.minimum(flows.arrival_us // cfg.dt_us, cfg.num_steps - 1)
     early = step < 500
     differ = early & (fg != fc)
-    out = {"phase": "device_vs_cpu", "spec": "testbed8 lcmp load 0.5 100 ms",
+    out = {"phase": "device_vs_cpu", "spec": label,
            "same_path_share": float((fg[early] == fc[early]).mean()),
            "flows_first_500_steps": int(early.sum()),
            "first_differing_step": int(step[differ].min()) if differ.any() else None,
@@ -883,12 +1149,22 @@ def phase_device_vs_cpu(dev) -> dict:
                    "wall_s": wc},
            "offered": sg.offered}
     emit(out)
-    require(out["same_path_share"] >= 0.99, "device vs cpu: same paths")
-    require(within(sg.p50, sc.p50, P50_BAND), "device vs cpu: p50 in band")
-    require(within(sg.p99, sc.p99, P99_BAND), "device vs cpu: p99 in band")
+    require(out["same_path_share"] >= 0.99, f"device vs cpu {label}: same paths")
+    require(within(sg.p50, sc.p50, P50_BAND), f"device vs cpu {label}: p50 in band")
+    require(within(sg.p99, sc.p99, P99_BAND), f"device vs cpu {label}: p99 in band")
     require(abs(sg.completed - sc.completed) <= COMPLETED_BAND * sg.offered,
-            "device vs cpu: completed in band")
+            f"device vs cpu {label}: completed in band")
     return out
+
+
+def phase_device_vs_cpu(dev) -> list:
+    """testbed8 lcmp, and a schedule run: testbed8_failover lcmp with the
+    trip at 50 ms (step 250, active flows on the tripped link)."""
+    return [device_vs_cpu(dev, dict(TESTBED8, policy="lcmp"),
+                          "testbed8 lcmp load 0.5 100 ms"),
+            device_vs_cpu(dev, dict(topology="testbed8_failover:fail_ms=50",
+                                    load=0.3, policy="lcmp"),
+                          "testbed8_failover:fail_ms=50 lcmp load 0.3 100 ms")]
 
 
 def adam_bound(cfg, t: int) -> float:
@@ -1161,26 +1437,30 @@ def kernel_summary(checks: dict, runs: dict, train: dict) -> dict:
     """The ``kernels`` line: every TPU kernel, each at its main-path
     entry. The fluid pair's entries are the fused ``monitor_tick`` and
     ``route_arrivals`` at testbed8's shape (lcmp, the row with the most
-    arrivals), with their launches summed over the four main-path runs;
-    the standalone ``cong_update`` and ``lcmp_decide`` entries, which the
-    main path no longer launches, stand beside them."""
+    arrivals) and ``decide`` at wan2000's (lcmp, every flow, the
+    failover's read), with their launches summed over the runs of
+    phase 4; the standalone ``cong_update`` and ``lcmp_decide`` entries,
+    which the main path does not launch, stand beside them."""
     meta = {"monitor_tick": ("src/repro_torch/kernels/csrc/cong_update.cu",
                              "src/repro/kernels/cong_update.py:74", "cong_update"),
             "route_arrivals": ("src/repro_torch/kernels/csrc/lcmp_decide.cu",
-                               "src/repro/kernels/lcmp_decide.py:93", "lcmp_decide")}
+                               "src/repro/kernels/lcmp_decide.py:93", "lcmp_decide"),
+            "decide": ("src/repro_torch/kernels/csrc/lcmp_decide.cu",
+                       "src/repro/kernels/lcmp_decide.py:93", "lcmp_decide")}
     out = []
     for name, (source, replaces, standalone) in meta.items():
         fields = kernel_fields(checks[name])
-        if name == "route_arrivals":
-            fields["max_abs_err"] = max(fields["max_abs_err"], max(
-                r["max_abs_err"] for r in checks["route_arrivals_cases"]))
+        cases = checks.get(f"{name}_cases", [])
+        if cases:
+            fields["max_abs_err"] = max(fields["max_abs_err"],
+                                        max(r["max_abs_err"] for r in cases))
         alone = checks[standalone][0]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(r["launches"][name] for r in runs.values()),
-            "launches_by_run": {f"{w}/{p}": r["launches"][name]
-                                for (w, p), r in runs.items()},
+            "launches_by_run": {run: r["launches"][name]
+                                for run, r in runs.items()},
             **fields, "host_us": checks[name][0]["host_us"],
             "standalone": {"name": standalone,
                            "launches": sum(r["launches"][standalone]

@@ -3,8 +3,8 @@
 ``C_path(p) = min((w_dl * delayScore(p) + w_lc * linkCapScore(p)) >> S_path, 255)``
 
 Counterpart of ``repro/core/pathq.py`` (``calc_delay_cost``,
-``calc_linkcap_cost``, ``calc_path_quality``), integer-only and
-bit-exact with it. Functions follow their inputs' device.
+``calc_linkcap_cost``, ``calc_path_quality``, ``path_bottleneck_stats``),
+integer-only and bit-exact with it. Functions follow their inputs' device.
 """
 from __future__ import annotations
 
@@ -54,3 +54,21 @@ def calc_path_quality(delay_us: torch.Tensor, cap_gbps: torch.Tensor,
     lc = calc_linkcap_cost(cap_gbps, cap_thresh)
     fused = params.w_dl * ds + params.w_lc * lc
     return torch.clamp_max(fused >> params.s_path, SCORE_MAX).to(torch.int32)
+
+
+def path_bottleneck_stats(link_delay_us: torch.Tensor,
+                          link_cap_gbps: torch.Tensor,
+                          path_links: torch.Tensor, path_len: torch.Tensor):
+    """Per-link attributes to per-path ``(delay = sum, cap = min)`` over
+    each path's first ``path_len`` hops, both int32. ``path_links`` (P, H)
+    link indices padded with -1. The control plane's refresh
+    (``netsim.engine.ctrl_refresh``) passes *effective* capacities
+    (degrade factors and liveness applied, 0 for a dead link)."""
+    H = path_links.shape[-1]
+    hop_valid = (torch.arange(H, device=path_links.device)[None, :]
+                 < path_len[:, None])
+    safe = torch.clamp_min(path_links, 0).long()
+    d = torch.where(hop_valid, link_delay_us[safe], 0).sum(-1)
+    c = torch.where(hop_valid, link_cap_gbps[safe],
+                    torch.iinfo(torch.int32).max).amin(-1)
+    return d.to(torch.int32), c.to(torch.int32)

@@ -1,7 +1,7 @@
 """Fused cost + diversity-preserving selection (paper §3.1.1 Eq. 1, §3.4).
 
 Counterpart of ``repro/core/select.py`` (``fmix32``, ``select_egress``
-without ``weights``, ``ecmp_select``), bit-exact with it.
+with and without ``weights``, ``ecmp_select``), bit-exact with it.
 
 Torch has almost no uint32 arithmetic, so 32-bit hash values live in
 int64 tensors holding [0, 2**32). ``fmix32``'s multiplies would overflow
@@ -62,12 +62,12 @@ def select_egress(flow_ids: torch.Tensor, c_path: torch.Tensor,
 
     ``flow_ids`` (F,) integer ids (uint32 values); ``c_path``/``c_cong``/
     ``valid`` (F, P) or (P,). Returns ``(choice (F,) int32, cost (F, P)
-    int32)`` with -1 where no candidate is valid.
+    int32)`` with -1 where no candidate is valid. ``weights`` (F, P) or
+    (P,) integers make the stage-2 hash inside the kept set weighted (the
+    beyond-paper ``lcmp_w``): the weights in rank order, ``max(w, 1)``
+    inside the kept prefix and 0 outside, and the pick rank is the count
+    of their cumulative sums ``<= int32(fmix32(id) >> 1) % total``.
     """
-    if weights is not None:
-        raise NotImplementedError(
-            "capacity-weighted stage 2 (lcmp_w) is ROADMAP.md queue A "
-            "item 4")
     F = flow_ids.shape[0]
     cost = fused_cost(c_path, c_cong, params)
     P = cost.shape[-1]
@@ -88,7 +88,16 @@ def select_egress(flow_ids: torch.Tensor, c_path: torch.Tensor,
 
     # stage 2: hash-ECMP inside the kept lowest-cost prefix
     h = fmix32(flow_ids)
-    pick_rank = h % keep.to(torch.int64)
+    if weights is None:
+        pick_rank = h % keep.to(torch.int64)
+    else:
+        w_sorted = weights.to(torch.int32).expand(F, P).gather(-1, order)
+        in_keep = (torch.arange(P, device=cost.device)[None, :]
+                   < keep[:, None])
+        w_kept = torch.where(in_keep, torch.clamp_min(w_sorted, 1), 0)
+        cum = torch.cumsum(w_kept, dim=-1)
+        hv = (h >> 1) % torch.clamp_min(cum[:, -1], 1)
+        pick_rank = (cum <= hv[:, None]).sum(-1)
     hashed_choice = order.gather(-1, pick_rank[:, None])[:, 0]
 
     # fallback: all candidates highly congested -> argmin fused cost

@@ -1,27 +1,33 @@
-"""Wrappers of the hand-written CUDA LCMP-decision kernels.
+"""Wrappers of the hand-written CUDA path-decision kernels.
 
 Replace the Pallas TPU kernel ``src/repro/kernels/lcmp_decide.py:93``
 (``lcmp_decide``, body ``_decide_kernel``); the source is
 ``csrc/lcmp_decide.cu``, which states what bounds it on the H100 (bytes;
 launch latency at the engine's 7-24 arrivals per step) and what its
-design does about that. Two entries share its decision:
+design does about that. Three entries share its decision:
 
-- ``lcmp_decide``: the TPU kernel's contract, a batch of decisions over
-  given scores. The public layout is the reference's (F, P); the kernel
-  takes P <= 8 and raises on wider candidate sets.
+- ``lcmp_decide``: the TPU kernel's contract, a batch of LCMP decisions
+  over given scores. The public layout is the reference's (F, P); the
+  kernel takes P <= 8 and raises on wider candidate sets.
 - ``route_arrivals``: the fluid engine's whole arrival routing for one
-  step (candidates, liveness, the delayed congestion view, the lcmp or
-  ecmp decision, the queue wait and RTT, and the eight per-flow fields
-  written in place) in one launch. ``RouteArrivals`` is its launcher for
-  a run: it checks the fixed tensors once, and a step passes only ``t``,
-  the queues and the flow fields.
+  step (candidates, liveness, the delayed congestion view, the policy's
+  law, the queue wait and RTT, and the eight per-flow fields written in
+  place) in one launch, for every law of ``POLICY_CODES``.
+- ``decide``: the failover's and the re-decision's decisions for N
+  given (hash key, pair) and a ring step for the congestion view, one
+  launch returning ``(k_idx, chosen)``.
 
-For CPU tensors the wrappers run the plain versions
-(``ref.lcmp_decide_ref``, ``ref.route_arrivals_ref``); for CUDA tensors
-they launch the kernel or raise. ``lcmp_decide.launches`` and
-``route_arrivals.launches`` count kernel launches only. Flow ids are
-int64 tensors holding uint32 values (see ``core.select``); the kernels
-hash their low 32 bits.
+``RouteArrivals`` is the launcher of a run for the last two: it checks
+the fixed tensors once; a route step passes only ``t``, the queues and
+the flow fields, a decision its keys and pairs. For CPU tensors the
+wrappers run the plain versions (``ref.lcmp_decide_ref``,
+``ref.route_arrivals_ref``, ``ref.decide_ref``); for CUDA tensors
+``lcmp_decide`` and ``route_arrivals`` launch their kernel or raise, and
+``decide`` raises: on the card only a run's launcher decides
+(``RouteArrivals.decide``), so a decision never rebuilds one. ``lcmp_decide.launches``,
+``route_arrivals.launches`` and ``decide.launches`` count kernel
+launches only. Flow ids are int64 tensors holding uint32 values (see
+``core.select``); the kernels hash their low 32 bits.
 """
 from __future__ import annotations
 
@@ -34,7 +40,10 @@ from repro_torch.kernels import build, ref
 
 P_MAX = 8          # switch candidate sets are m <= 8 (paper §4)
 H_MAX = 8          # hops a path may have in the route kernel
-POLICY_CODES = {"lcmp": 0, "ecmp": 2}     # netsim.engine.POLICY_CODES
+# every law of netsim.engine.POLICY_CODES, with its code
+POLICY_CODES = {"lcmp": 0, "lcmp_w": 1, "ecmp": 2, "ucmp": 3, "wcmp": 4,
+                "redte": 5, "fatpaths": 6, "amp": 7, "lcmp_r": 8,
+                "matchrdma": 9}
 # (name, dtype) of the link queues the route reads and the per-flow
 # fields it writes, in the order of ``StepTensors`` in the source
 _STEP_TENSORS = (("q_bytes", torch.float32),
@@ -94,7 +103,8 @@ class _RouteArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "arrivals", "f_pair", "f_id", "f_size", "pair_cand", "path_links",
         "path_sig", "path_prop", "path_cap", "link_cap", "link_alive",
-        "hist_c", "c_path")]
+        "hist_c", "c_path", "path_cap_gbps", "path_len", "link_cap_gbps",
+        "link_deg_step", "link_deg_factor", "redte_w")]
         + [("hist_len", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
             "A", "K", "H", "policy", "alpha", "beta", "keep_num",
@@ -125,16 +135,18 @@ def _within(x: torch.Tensor, name: str, lo: int, hi: int) -> None:
 
 
 class RouteArrivals:
-    """The arrival routing of one run on the card, one launch a step.
+    """The arrival routing and the decisions of one run on the card.
 
     Built once from the engine's arrays ``ar`` (``SimArrays``) and the
     state tensors the run keeps (``st.link_alive``, ``st.hist_c``,
-    ``st.c_path``), checked here with their index ranges. A call
-    ``(t, st)`` routes row ``t`` of ``ar.arrivals``: it passes the
-    step's link queues and the eight per-flow fields of ``st``, each
-    checked cheaply the first time the launcher sees it (a tensor must
-    not be resized while the launcher may see it again), and the kernel
-    writes those fields IN PLACE.
+    ``st.c_path``, ``st.redte_w``; the run updates them in place),
+    checked here with their index ranges. A call ``(t, st)`` routes row
+    ``t`` of ``ar.arrivals`` in one launch: it passes the step's link
+    queues and the eight per-flow fields of ``st``, each checked cheaply
+    the first time the launcher sees it (a tensor must not be resized
+    while the launcher may see it again), and the kernel writes those
+    fields IN PLACE. ``decide(t, fid, pair, sig_step)`` is one launch of
+    the ``decide`` entry.
     """
 
     def __init__(self, ar, st, policy: str, select: SelectParams,
@@ -143,7 +155,7 @@ class RouteArrivals:
         if dev.type != "cuda":
             raise ValueError(f"route_arrivals: unsupported device {dev}")
         if policy not in POLICY_CODES:
-            raise ValueError(f"route_arrivals: the kernel routes "
+            raise ValueError(f"route_arrivals: the kernel routes by the laws "
                              f"{tuple(POLICY_CODES)}, not {policy!r}")
         T, A = ar.arrivals.shape
         F, (NPAIR, K), (NP, H) = (ar.f_pair.shape[0], ar.pair_cand.shape,
@@ -170,7 +182,13 @@ class RouteArrivals:
                 ("link_cap", ar.link_cap, torch.float32, (L,)),
                 ("link_alive", st.link_alive, torch.bool, (L,)),
                 ("hist_c", st.hist_c, torch.int32, (L, R)),
-                ("c_path", st.c_path, torch.int32, (NP,))):
+                ("c_path", st.c_path, torch.int32, (NP,)),
+                ("path_cap_gbps", ar.path_cap_gbps, torch.int32, (NP,)),
+                ("path_len", ar.path_len, torch.int32, (NP,)),
+                ("link_cap_gbps", ar.link_cap_gbps, torch.int32, (L,)),
+                ("link_deg_step", ar.link_deg_step, torch.int32, (L,)),
+                ("link_deg_factor", ar.link_deg_factor, torch.float32, (L,)),
+                ("redte_w", st.redte_w, torch.int32, (NPAIR, K))):
             _need(x, name, dtype, shape, dev)
         _within(ar.arrivals, "arrivals", -1, F)
         _within(ar.f_pair, "f_pair", 0, NPAIR)
@@ -182,17 +200,23 @@ class RouteArrivals:
             ar.path_links.data_ptr(), ar.path_sig_delay.data_ptr(),
             ar.path_prop.data_ptr(), ar.path_cap.data_ptr(),
             ar.link_cap.data_ptr(), st.link_alive.data_ptr(),
-            st.hist_c.data_ptr(), st.c_path.data_ptr(), R, A, K, H,
+            st.hist_c.data_ptr(), st.c_path.data_ptr(),
+            ar.path_cap_gbps.data_ptr(), ar.path_len.data_ptr(),
+            ar.link_cap_gbps.data_ptr(), ar.link_deg_step.data_ptr(),
+            ar.link_deg_factor.data_ptr(), st.redte_w.data_ptr(), R, A, K, H,
             POLICY_CODES[policy], select.alpha, select.beta, select.keep_num,
             select.cong_fallback, dt_us)
         # the tensors whose pointers the struct holds stay alive with it
         self.keep = (ar.arrivals, ar.f_pair, ar.f_id, ar.f_size, ar.pair_cand,
                      ar.path_links, ar.path_sig_delay, ar.path_prop,
-                     ar.path_cap, ar.link_cap)
-        self.bound = (st.link_alive, st.hist_c, st.c_path)
+                     ar.path_cap, ar.link_cap, ar.path_cap_gbps, ar.path_len,
+                     ar.link_cap_gbps, ar.link_deg_step, ar.link_deg_factor)
+        self.bound = (st.link_alive, st.hist_c, st.c_path, st.redte_w)
+        self.f_pair, self.NPAIR = ar.f_pair, NPAIR
         self.T, self.F, self.L, self.dev_index = T, F, L, dev.index
         self.args_ref = ctypes.byref(self.args)
-        self.launcher = build.load("lcmp_decide").route_arrivals_launch
+        lib = build.load("lcmp_decide")
+        self.launcher, self.decider = lib.route_arrivals_launch, lib.decide_launch
         self.step = _StepTensors()
         self.step_ref = ctypes.byref(self.step)
         self.seen = [None] * len(_STEP_TENSORS)
@@ -200,7 +224,8 @@ class RouteArrivals:
     def bound_to(self, st) -> bool:
         """Whether ``st`` keeps the tensors the launcher was built on."""
         b = self.bound
-        return st.link_alive is b[0] and st.hist_c is b[1] and st.c_path is b[2]
+        return (st.link_alive is b[0] and st.hist_c is b[1]
+                and st.c_path is b[2] and st.redte_w is b[3])
 
     def _bind_step(self, st) -> None:
         """Point ``self.step`` at the step's queues and eight per-flow
@@ -242,6 +267,35 @@ class RouteArrivals:
         build.check(err, "route_arrivals")
         route_arrivals.launches += 1
 
+    def decide(self, t: int, fid: torch.Tensor, pair: torch.Tensor,
+               sig_step: int):
+        """One ``decide`` launch for N decisions: hash keys ``fid`` (N,)
+        int64, pairs ``pair`` (N,) int32; the congestion view reads ring
+        step ``sig_step`` (may be negative), ``matchrdma``'s degrade
+        schedule applies at ``t``. Returns ``(k_idx, chosen)``, (N,) int32
+        each, -1 where no candidate is valid."""
+        dev = torch.device("cuda", self.dev_index)
+        N = fid.shape[0] if fid.dim() == 1 else -1
+        _need(fid, "decide fid", torch.int64, (N,), dev)
+        if pair is not self.f_pair:     # the engine's pairs were checked
+            _need(pair, "decide pair", torch.int32, (N,), dev)
+            _within(pair, "decide pair", 0, self.NPAIR)
+        if not (-(1 << 31) <= min(t, sig_step) <= max(t, sig_step) < 1 << 31):
+            raise ValueError(f"decide: t and sig_step must fit int32, got "
+                             f"t={t}, sig_step={sig_step}")
+        k_idx = torch.empty((N,), dtype=torch.int32, device=dev)
+        chosen = torch.empty((N,), dtype=torch.int32, device=dev)
+        if N == 0:                      # nothing to decide: no launch
+            return k_idx, chosen
+        with torch.cuda.device(self.dev_index):
+            err = self.decider(self.args_ref, N, fid.data_ptr(),
+                               pair.data_ptr(), k_idx.data_ptr(),
+                               chosen.data_ptr(), t, sig_step,
+                               build.raw_stream(self.dev_index))
+        build.check(err, "decide")
+        decide.launches += 1
+        return k_idx, chosen
+
 
 def route_arrivals(t: int, st, ar, policy: str,
                    select: SelectParams = SelectParams(), dt_us: int = 200):
@@ -263,3 +317,22 @@ def route_arrivals(t: int, st, ar, policy: str,
 
 
 route_arrivals.launches = 0
+
+
+def decide(t: int, fid: torch.Tensor, pair: torch.Tensor, st, ar,
+           policy: str, select: SelectParams = SelectParams(),
+           sig_step=None):
+    """``(k_idx, chosen)`` of ``policy``'s law for N decisions (hash keys
+    ``fid`` (N,) int64, pairs ``pair`` (N,) int32), the congestion view
+    read at ring step ``sig_step`` (default ``t``): the plain version on
+    the CPU. On the card a run's ``RouteArrivals.decide`` launches the
+    kernel (``netsim.engine.StepLaunchers.decide``); this raises there."""
+    dev = ar.pair_cand.device
+    if dev.type == "cpu":
+        sig = t if sig_step is None else sig_step
+        return ref.decide_ref(t, fid, pair, st, ar, policy, select, sig)
+    raise ValueError(f"decide: on {dev} a run's launcher decides "
+                     f"(RouteArrivals.decide, as engine.StepLaunchers does)")
+
+
+decide.launches = 0

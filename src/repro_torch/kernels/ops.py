@@ -6,8 +6,11 @@ card, ``lcmp_decide`` candidate sets wider than 8, or int64 random bits
 for ``qsr_int8``) raises.
 
 ``monitor_tick`` and ``route_arrivals`` are the fluid engine's two fused
-phases; ``MonitorTick`` and ``RouteArrivals`` are their launchers for a
-run on the card (``netsim.fluid.make_step`` builds one of each).
+phases and ``decide`` its failover and re-decision decision;
+``MonitorTick`` and ``RouteArrivals`` are their launchers for a run on
+the card (``netsim.fluid.make_step`` builds one of each). On the card
+``decide`` launches only through a run's ``RouteArrivals.decide``; its
+wrapper here is the plain version and raises for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from repro_torch.core.select import SelectParams
 from repro_torch.kernels import cong_update as _cong
 from repro_torch.kernels import lcmp_decide as _decide
 from repro_torch.kernels.cong_update import MonitorTick, monitor_tick
-from repro_torch.kernels.lcmp_decide import RouteArrivals, route_arrivals
+from repro_torch.kernels.lcmp_decide import (RouteArrivals, decide,
+                                             route_arrivals)
 from repro_torch.kernels.qsr_int8 import qsr_dequant, qsr_int8
 
 
@@ -35,6 +39,7 @@ def cong_update(state, queue_cells, now_us, tables, params=None,
 _COUNTED = {"cong_update": _cong.cong_update,
             "lcmp_decide": _decide.lcmp_decide,
             "monitor_tick": monitor_tick, "route_arrivals": route_arrivals,
+            "decide": decide,
             "qsr_int8": qsr_int8, "qsr_dequant": qsr_dequant}
 
 

@@ -6,10 +6,12 @@ path the engine uses. The kernel wrappers run these for CPU tensors;
 the CUDA kernels must match them bit for bit.
 
 Besides the TPU kernels' own functions, this holds the plain versions of
-the fluid engine's two fused phases, ``monitor_tick_ref`` and
-``route_arrivals_ref``, and the candidate view both the route and
-``netsim.engine.decide`` read. They take the engine's ``SimState`` and
-``SimArrays`` by field name and use the ring width of ``hist_c``.
+the fluid engine's fused phases, ``monitor_tick_ref`` and
+``route_arrivals_ref``, and of the failover and re-decision decision,
+``decide_ref``, with the candidate view and the policy-dispatched law
+(``law_choice``, the reference's ``engine.decide._choice``) they share.
+They take the engine's ``SimState`` and ``SimArrays`` by field name and
+use the ring width of ``hist_c``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import baselines as bl
 from repro_torch.core import cong as congmod
 from repro_torch.core import select as selmod
 from repro_torch.core.cong import CongParams, CongState
@@ -100,40 +103,90 @@ def chosen_path(cand: torch.Tensor, k_idx: torch.Tensor) -> torch.Tensor:
     return torch.where(k_idx >= 0, chosen[:, 0], -1)
 
 
-def path_queue_wait(q_bytes: torch.Tensor, link_cap: torch.Tensor,
-                    hop: torch.Tensor) -> torch.Tensor:
-    """Standing-queue wait of paths with hops ``hop`` (N, H): the sum
-    over hops of queue bytes / link capacity, added hop by hop in hop
-    order (as the route kernel adds) with tensor-by-tensor IEEE
-    divisions, so the two agree bit for bit."""
-    h = torch.clamp_min(hop, 0)
-    term = torch.where(hop >= 0, q_bytes[h] / link_cap[h], 0.0)
-    qw = term[:, 0]
-    for j in range(1, term.shape[1]):
-        qw = qw + term[:, j]
-    return qw
+# the laws of netsim.engine.POLICY_CODES (all but the sweep meta-policy)
+LAWS = ("lcmp", "lcmp_w", "ecmp", "ucmp", "wcmp", "redte", "fatpaths", "amp",
+        "lcmp_r", "matchrdma")
+# the laws that read the delayed congestion view
+VIEW_LAWS = ("lcmp", "lcmp_w", "lcmp_r", "fatpaths", "matchrdma")
+
+
+def law_choice(policy: str, t: int, sig_step: int, fid: torch.Tensor,
+               pair: torch.Tensor, cand: torch.Tensor, hop: torch.Tensor,
+               valid: torch.Tensor, st, ar,
+               select: SelectParams = SelectParams()) -> torch.Tensor:
+    """The candidate slot ``policy``'s law picks for each of N decisions
+    (-1 where none is valid): hash keys ``fid`` (N,), pairs ``pair`` (N,)
+    and their ``candidate_view``. The congestion view reads ``hist_c``
+    slot ``sig_step`` less each hop's signal delay; ``matchrdma``'s
+    degrade schedule applies at step ``t``."""
+    if policy not in LAWS:
+        raise ValueError(f"no law for policy {policy!r}; laws: {LAWS}")
+    cpad = torch.clamp_min(cand, 0)
+    if policy in VIEW_LAWS:
+        c_cong = path_cong_view(st.hist_c, hop, ar.path_sig_delay[cpad],
+                                sig_step)
+    capg = ar.path_cap_gbps[cpad]
+    if policy in ("lcmp", "lcmp_r"):    # lcmp_r differs only in the tick
+        return selmod.select_egress(fid, st.c_path[cpad], c_cong, valid,
+                                    select)[0]
+    if policy == "lcmp_w":              # capacity-weighted stage 2
+        return selmod.select_egress(fid, st.c_path[cpad], c_cong, valid,
+                                    select, weights=capg)[0]
+    if policy in ("ecmp", "amp"):       # amp: each subflow its own hash
+        return bl.ecmp(fid, None, capg, valid)
+    if policy == "ucmp":
+        return bl.ucmp(fid, None, capg, valid)
+    if policy == "wcmp":
+        return bl.wcmp(fid, None, capg, valid)
+    if policy == "redte":
+        return bl._weighted_hash(fid, st.redte_w[pair], valid)
+    if policy == "fatpaths":
+        return bl.fatpaths(fid, ar.path_len[cpad], valid, c_cong,
+                           cong_thresh=select.cong_fallback)
+    # matchrdma: the tightest span's effective capacity (float32, the
+    # degrade schedule applied at step t) x the congestion headroom
+    eff = ar.link_cap_gbps * torch.where(t >= ar.link_deg_step,
+                                         ar.link_deg_factor, 1.0)
+    bneck = torch.where(hop >= 0, eff[torch.clamp_min(hop, 0)],
+                        1e9).amin(-1)
+    avail = bneck * (256 - c_cong).to(torch.float32)
+    return bl.matchrdma(fid, torch.clamp_max(avail, 1e9).to(torch.int32),
+                        valid)
+
+
+def decide_ref(t: int, fid: torch.Tensor, pair: torch.Tensor, st, ar,
+               policy: str, select: SelectParams = SelectParams(),
+               sig_step=None):
+    """``netsim.engine.decide``'s plain version: ``(k_idx, chosen)``, the
+    candidate slot and global path index of each of N decisions (hash
+    keys ``fid`` (N,) int64, pairs ``pair`` (N,)), both (N,) int32 and -1
+    where no candidate is valid. ``sig_step`` (default ``t``) is the step
+    whose ring slot the congestion view reads."""
+    cand, hop, valid = candidate_view(pair, st, ar)
+    k_idx = law_choice(policy, t, t if sig_step is None else sig_step, fid,
+                       pair, cand, hop, valid, st, ar, select)
+    return k_idx, chosen_path(cand, k_idx)
 
 
 def route_arrivals_ref(t: int, st, ar, policy: str,
                        select: SelectParams = SelectParams(),
                        dt_us: int = 200):
     """Route the flows arriving at step ``t`` (row ``t`` of
-    ``ar.arrivals``) with the plain decision of ``policy`` (``lcmp`` or
-    ``ecmp``). Returns a new state with the eight per-flow fields of the
-    routed flows written; pads and flows with no valid candidate change
+    ``ar.arrivals``) with the plain law of ``policy`` (any of ``LAWS``).
+    Returns a new state with the eight per-flow fields of the routed
+    flows written; pads and flows with no valid candidate change
     nothing."""
     idx = ar.arrivals[t]                        # (A,)
     fidx = torch.clamp_min(idx, 0)
-    fid = ar.f_id[fidx]
-    cand, hop, valid = candidate_view(ar.f_pair[fidx], st, ar)
-    if policy == "lcmp":
-        k_idx = lcmp_decide_ref(fid, *lcmp_scores(t, cand, hop, st, ar), valid,
-                                select)
-    elif policy == "ecmp":
-        k_idx = selmod.ecmp_select(fid, valid)
-    else:
-        raise ValueError(f"route_arrivals: no plain route for policy {policy!r}")
+    pair = ar.f_pair[fidx]
+    cand, hop, valid = candidate_view(pair, st, ar)
+    k_idx = law_choice(policy, t, t, ar.f_id[fidx], pair, cand, hop, valid,
+                       st, ar, select)
     chosen = torch.where(idx >= 0, chosen_path(cand, k_idx), -1)  # (A,)
+
+    # the engine's queue-wait sum, which its failover and re-decision
+    # use too (imported here: the engine imports the kernels)
+    from repro_torch.netsim.engine import path_queue_wait
 
     ok = chosen >= 0
     cpath_sel = torch.clamp_min(chosen, 0)

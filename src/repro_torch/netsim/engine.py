@@ -1,29 +1,38 @@
 """Simulation core shared by the engines (counterpart of
 ``repro/netsim/engine.py``), in PyTorch.
 
-This slice ports what the fluid engine's main path runs: ``SimConfig``,
-``SimArrays``, ``SimState``, ``build``, ``attach_link_caps``, the signal
-plane (``monitor_tick``, ``path_cong_view``), ``ctrl_tick`` (a no-op
-without schedules), routing at arrival (``decide`` for ``lcmp`` and
-``ecmp``, ``_route_arrivals``) and the DCQCN rate law (``_cc_update``).
-Everything else raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item (``check_slice``).
+This holds everything the fluid engine runs: ``SimConfig``,
+``SimArrays``, ``SimState``, ``build`` (with the failure and degrade
+schedules), ``attach_link_caps``, the signal plane (``monitor_tick``,
+``path_cong_view``), the control plane (``ctrl_refresh``,
+``ctrl_tick``), the policy-dispatched decision (``decide``, every law
+of ``POLICY_CODES`` but the sweep meta-policy) with its three callers
+(``_route_arrivals``, the failover ``_reroute_dead`` and the
+re-decision ``redecide_tick``), ``redte_tick`` and the four CC laws
+(``_cc_update``: dcqcn, dctcp, timely, hpcc). The packet engine, the
+sweep and the sanitizer raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item (``check_slice``).
 
-On CUDA each of the step's two signal-plane phases is one hand-written
-CUDA kernel: ``monitor_tick`` launches ``kernels.monitor_tick`` (queue
-cells, registers, ``c_cong`` and the ``hist_c`` ring write) and
-``_route_arrivals`` launches ``kernels.route_arrivals`` (candidates,
-congestion view, the lcmp or ecmp decision, queue wait and the per-flow
-writes); ``StepLaunchers`` holds their launchers for a run. ``decide``,
-kept for the later failover and re-decision callers, launches
-``kernels.lcmp_decide``. On the CPU the same calls run the plain
-versions of ``kernels.ref``.
+On CUDA the step's decisions are hand-written CUDA kernels sharing one
+law dispatch (``kernels/csrc/lcmp_decide.cu``): ``monitor_tick``
+launches ``kernels.monitor_tick`` (queue cells, registers, ``c_cong``
+and the ``hist_c`` ring write), ``_route_arrivals`` launches
+``kernels.route_arrivals`` (candidates, congestion view, the law, queue
+wait and the per-flow writes), and the failover's and re-decision's
+decisions launch ``kernels.decide``, all through the launchers
+``StepLaunchers`` holds for a run. On the CPU the same calls run the
+plain versions of ``kernels.ref`` (``decide`` is the plain decision).
 
 Differences from the reference, by design:
 - on CUDA the step updates the state's history rings, congestion
   registers, ``c_cong`` and the eight per-flow fields the route writes
-  IN PLACE (the reference's JAX arrays are immutable); a caller that
-  needs the pre-step state copies those tensors first;
+  IN PLACE, and on both devices ``link_alive``, ``c_path`` and
+  ``redte_w`` are updated in place at the steps that change them (the
+  reference's JAX arrays are immutable); a caller that needs the
+  pre-step state copies those tensors first;
+- schedules are host-side: the trip, refresh, re-decision and RedTE
+  steps are known when the run starts, so the host loop branches on
+  ``t`` where the reference uses ``lax.cond`` or ``jnp.where``;
 - flow ids (``SimArrays.f_id``) are int64 tensors holding uint32 values,
   since torch lacks uint32 arithmetic;
 - ``SwitchTables.high_water_level`` is a Python int.
@@ -38,12 +47,14 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
+from repro_torch.core import baselines as bl
 from repro_torch.core import select as selmod
 from repro_torch.core.cong import CongParams, CongState
-from repro_torch.core.pathq import PathQParams, calc_path_quality
+from repro_torch.core.pathq import (PathQParams, calc_path_quality,
+                                    path_bottleneck_stats)
 from repro_torch.core.select import SelectParams
 from repro_torch.core.tables import bootstrap_tables
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import path_cong_view  # noqa: F401  (re-exported)
 from repro_torch.netsim.paths import PathTable
 from repro_torch.traffic.gen import FlowSet
@@ -57,12 +68,11 @@ POLICY_CODES = {
     "fatpaths": 6, "amp": 7, "lcmp_r": 8, "matchrdma": 9,
 }
 POLICIES = tuple(POLICY_CODES)
+# policies whose law re-decides mid-flow on the re-decision epoch
+REDECIDE_POLICIES = ("fatpaths", "lcmp_r")
 ENGINES = ("fluid", "packet")
+CC_LAWS = ("dcqcn", "dctcp", "timely", "hpcc")
 _NEVER = (1 << 30)   # sentinel step for "this link never fails/degrades"
-
-# what this slice of the port runs
-SLICE_POLICIES = ("lcmp", "ecmp")
-SLICE_CC = ("dcqcn",)
 
 
 def policy_code(policy: str) -> int:
@@ -73,9 +83,10 @@ def policy_code(policy: str) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """The reference's ``SimConfig`` fields that this slice reads (the
-    out-of-slice ones only so ``check_slice`` can refuse them), with the
-    same defaults."""
+    """The reference's ``SimConfig`` fields that the fluid engine reads
+    (``engine``, ``policy``'s ``sweep`` and ``checks`` only so
+    ``check_slice`` can refuse what is not ported), with the same
+    defaults."""
     engine: str = "fluid"
     policy: str = "lcmp"
     cc: str = "dcqcn"
@@ -88,11 +99,14 @@ class SimConfig:
     ai_frac: float = 0.002
     md_factor: float = 0.7
     cc_dec_period_us: int = 1_600
+    redte_period_us: int = 100_000
     sig_delay_scale: float = 1.0
     ctrl_period_us: int = 100_000
     select: SelectParams = SelectParams()
     pathq: PathQParams = PathQParams()
     congp: CongParams = CongParams()
+    # ((link_idx, at_us), ...) hard trips; ((link_idx, at_us, factor), ...)
+    # silent capacity loss
     fail_sched: tuple = ()
     degrade_sched: tuple = ()
     flowlet_gap_us: int = 0
@@ -114,8 +128,10 @@ class SimConfig:
 
 
 def check_slice(cfg: SimConfig) -> None:
-    """Raise ``NotImplementedError`` for any configuration this slice of
-    the port does not run, naming the ``ROADMAP.md`` item that will."""
+    """Raise ``NotImplementedError`` for any configuration the port does
+    not run yet (the packet engine, the sweep, the sanitizer), naming the
+    ``ROADMAP.md`` item that will; ``ValueError`` for an unknown engine,
+    policy or CC law."""
     def todo(what: str, item: str):
         raise NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue A item {item}")
@@ -126,17 +142,9 @@ def check_slice(cfg: SimConfig) -> None:
     if cfg.policy == "sweep":
         todo("the sweep meta-policy", "6")
     policy_code(cfg.policy)
-    if cfg.policy not in SLICE_POLICIES:
-        todo(f"policy {cfg.policy!r}", "4")
-    if cfg.cc not in SLICE_CC:
-        todo(f"congestion control {cfg.cc!r}", "4")
-    if cfg.has_failures or cfg.has_degrade:
-        todo("failure and degrade schedules (ctrl_refresh, _reroute_dead)",
-             "4")
-    if cfg.flowlet_gap_us or cfg.redecide_period_us:
-        todo("the mid-flow re-decision knobs", "4")
-    if cfg.n_subflows != 1:
-        todo("multi-subflow transports (amp)", "4")
+    if cfg.cc not in CC_LAWS:
+        raise ValueError(f"unknown congestion control {cfg.cc!r}; valid: "
+                         f"{CC_LAWS}")
     if cfg.checks:
         todo("the physics-invariant sanitizer (checks)", "7")
 
@@ -257,6 +265,16 @@ def build(table: PathTable, flows: FlowSet, cfg: SimConfig,
     slot = np.arange(len(srt)) - np.searchsorted(srt, srt, side="left")
     arrivals[srt, slot] = order
 
+    # failure / degradation schedules -> per-link step arrays
+    fail_step = np.full(L, _NEVER, np.int32)
+    for li, at_us in cfg.fail_sched:
+        fail_step[li] = min(int(fail_step[li]), int(at_us) // cfg.dt_us)
+    deg_step = np.full(L, _NEVER, np.int32)
+    deg_factor = np.ones(L, np.float32)
+    for li, at_us, fac in cfg.degrade_sched:
+        deg_step[li] = int(at_us) // cfg.dt_us
+        deg_factor[li] = float(fac)
+
     NPAIR, K = table.pair_cand.shape
     arr = SimArrays(
         link_cap=link_cap,
@@ -274,9 +292,9 @@ def build(table: PathTable, flows: FlowSet, cfg: SimConfig,
         f_id=_t(np.asarray(flows.flow_id, np.uint32), np.int64, dev),
         policy_code=torch.tensor(policy_code(cfg.policy), dtype=torch.int32,
                                  device=dev),
-        link_fail_step=torch.full((L,), _NEVER, dtype=torch.int32, device=dev),
-        link_deg_step=torch.full((L,), _NEVER, dtype=torch.int32, device=dev),
-        link_deg_factor=torch.ones((L,), dtype=torch.float32, device=dev),
+        link_fail_step=_t(fail_step, np.int32, dev),
+        link_deg_step=_t(deg_step, np.int32, dev),
+        link_deg_factor=_t(deg_factor, np.float32, dev),
         path_len=_t(table.path_len, np.int32, dev),
         link_delay_us=_t(link_delay_us, np.int32, dev),
         path_sig_delay=_t(sig_delay, np.int32, dev),
@@ -348,33 +366,56 @@ def monitor_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
     return dataclasses.replace(st, cong=cong, c_cong=c_cong)
 
 
+def ctrl_refresh(t: int, st: SimState, ar: SimArrays,
+                 cfg: SimConfig) -> torch.Tensor:
+    """One control-plane tick: the ``C_path`` table recomputed from the
+    *effective* per-link capacities (the degrade schedule and liveness
+    applied) through ``core.pathq``. Returns a new (NP,) int32 table."""
+    eff = ar.link_cap_gbps * torch.where(t >= ar.link_deg_step,
+                                         ar.link_deg_factor, 1.0)
+    eff = torch.where(st.link_alive, eff, 0.0).to(torch.int32)
+    _, cap_eff = path_bottleneck_stats(ar.link_delay_us, eff, ar.path_links,
+                                       ar.path_len)
+    return calc_path_quality(ar.path_prop, cap_eff, ar.tables.cap_thresh,
+                             cfg.pathq)
+
+
 def ctrl_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
-    """Periodic C_path re-install. Without a schedule that changes the
-    effective capacities the reference skips it, and so does this slice;
-    with one it raises (``ctrl_refresh`` is a later slice)."""
+    """The periodic ``C_path`` re-install: ``ctrl_refresh`` at every step
+    ``t`` with ``t % period == 0`` (t = 0 included), written into
+    ``st.c_path`` in place. Skipped, as in the reference, when the period
+    is 0 (the build-time table) or no schedule can change the effective
+    capacities."""
     if cfg.ctrl_period_us > 0 and (cfg.has_failures or cfg.has_degrade):
-        raise NotImplementedError(
-            "ctrl_refresh is not ported yet: ROADMAP.md queue A item 4")
+        if t % max(cfg.ctrl_period_us // cfg.dt_us, 1) == 0:
+            st.c_path.copy_(ctrl_refresh(t, st, ar, cfg))
+    return st
+
+
+def redte_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
+    """RedTE's periodic split-ratio re-optimization (``redte`` only):
+    every ``redte_period_us`` each pair's weights become the headroom
+    ``max(256 - util_q8, 1)`` of each candidate's first link, written
+    into ``st.redte_w`` in place."""
+    if cfg.policy == "redte":
+        if t % max(cfg.redte_period_us // cfg.dt_us, 1) == 0:
+            util_q8 = torch.clamp(st.u_ewma * 256, 0, 255).to(torch.int32)
+            first = ar.path_first[torch.clamp_min(ar.pair_cand, 0)]
+            head = bl.redte_weights(util_q8[first])
+            st.redte_w.copy_(torch.where(ar.pair_cand >= 0, head, 0))
     return st
 
 
 def decide(t: int, fid, pair, st: SimState, ar: SimArrays, cfg: SimConfig,
            sig_step=None):
-    """The policy-dispatched path decision. ``fid`` (N,) int64 hash keys;
-    returns ``(k_idx, chosen)``, both (N,) int32, -1 where no candidate is
-    valid. ``lcmp`` goes through ``kernels.lcmp_decide``."""
-    cand, hop, valid = ref.candidate_view(pair, st, ar)
-    if cfg.policy == "lcmp":
-        c_path, c_cong = ref.lcmp_scores(t if sig_step is None else sig_step,
-                                         cand, hop, st, ar)
-        k_idx = ops.lcmp_decide(fid, c_path, c_cong, valid, cfg.select)
-    elif cfg.policy == "ecmp":
-        k_idx = selmod.ecmp_select(fid, valid)
-    else:
-        raise NotImplementedError(
-            f"policy {cfg.policy!r} is not ported yet: ROADMAP.md queue A "
-            "item 4")
-    return k_idx, ref.chosen_path(cand, k_idx)
+    """The policy-dispatched path decision for N ``(fid, pair)``: hash
+    keys (N,) int64 and pairs (N,) int32. ``sig_step`` (default ``t``)
+    is the step whose ``hist_c`` slot the congestion view reads. Returns
+    ``(k_idx, chosen)``, both (N,) int32, -1 where no candidate is valid.
+    The plain version, for CPU tensors; on the card a run decides through
+    ``StepLaunchers.decide``."""
+    return ops.decide(t, fid, pair, st, ar, cfg.policy, cfg.select,
+                      sig_step)
 
 
 def _route_arrivals(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
@@ -384,13 +425,116 @@ def _route_arrivals(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
     return ops.route_arrivals(t, st, ar, cfg.policy, cfg.select, cfg.dt_us)
 
 
+def path_queue_wait(q_bytes: torch.Tensor, link_cap: torch.Tensor,
+                    hop: torch.Tensor) -> torch.Tensor:
+    """Standing-queue wait of paths with hops ``hop`` (N, H): the sum
+    over hops of queue bytes / link capacity, added hop by hop in hop
+    order (as the route kernel adds) with tensor-by-tensor IEEE
+    divisions, so the two agree bit for bit."""
+    h = torch.clamp_min(hop, 0)
+    term = torch.where(hop >= 0, q_bytes[h] / link_cap[h], 0.0)
+    qw = term[:, 0]
+    for j in range(1, term.shape[1]):
+        qw = qw + term[:, j]
+    return qw
+
+
+def _path_queue_wait(st: SimState, ar: SimArrays, path_idx) -> torch.Tensor:
+    """Standing-queue wait a path's first packets see (``path_idx``
+    clamped >= 0)."""
+    return path_queue_wait(st.q_bytes, ar.link_cap, ar.path_links[path_idx])
+
+
+def _rtt(ar: SimArrays, path_idx, dt_us: int) -> torch.Tensor:
+    return torch.clamp_min(torch.div(2 * ar.path_prop[path_idx], dt_us,
+                                     rounding_mode="floor"), 1).to(torch.int32)
+
+
+def _decider(ar: SimArrays, cfg: SimConfig, decide_fn):
+    """``decide_fn``, or the engine's ``decide`` with its signature
+    ``(t, fid, pair, st, sig_step)``."""
+    return decide_fn or (lambda t, fid, pair, st, sig_step:
+                         decide(t, fid, pair, st, ar, cfg, sig_step))
+
+
+def _reroute_dead(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
+                  decide_fn=None) -> SimState:
+    """Lazy failover at a trip step: every active flow whose pinned path
+    crosses a dead link re-decides under its policy's own law (one
+    ``decide`` over all flows, reading the congestion view at ``t - 1``,
+    since this step's monitor tick has not run). A moved flow starts
+    afresh on its new path (line rate, MD timer and CC memory reset, the
+    new path's queue wait and RTT); one with no live candidate becomes
+    inactive. ``decide_fn(t, fid, pair, st, sig_step)`` decides: the
+    run's ``StepLaunchers.decide`` on the card, ``decide`` by default."""
+    decide_fn = _decider(ar, cfg, decide_fn)
+    hop = ar.path_links[torch.clamp_min(st.flow_path, 0)]
+    dead = torch.where(hop >= 0, ~st.link_alive[torch.clamp_min(hop, 0)],
+                       False).any(-1)
+    move = st.active & dead & (st.flow_path >= 0)
+
+    k_idx, new_path = decide_fn(t, ar.f_id, ar.f_pair, st, t - 1)
+    ok = move & (k_idx >= 0)
+    npad = torch.clamp_min(new_path, 0)
+    line = ar.path_cap[npad]
+    return dataclasses.replace(
+        st,
+        flow_path=torch.where(ok, new_path, st.flow_path),
+        rate=torch.where(ok, line, st.rate),
+        cc_target=torch.where(ok, line, st.cc_target),
+        last_dec=torch.where(ok, -(1 << 20), st.last_dec),
+        cc_alpha=torch.where(ok, 0.0, st.cc_alpha),
+        prev_delay=torch.where(ok, 0.0, st.prev_delay),
+        extra_wait=torch.where(ok, _path_queue_wait(st, ar, npad),
+                               st.extra_wait),
+        rtt_steps=torch.where(ok, _rtt(ar, npad, cfg.dt_us), st.rtt_steps),
+        route_step=torch.where(ok, t, st.route_step),
+        active=torch.where(move & (k_idx < 0), False, st.active))
+
+
+def wants_redecide(cfg: SimConfig) -> bool:
+    """Whether the fluid engine's re-decision plane is armed: a positive
+    ``redecide_period_us`` and a policy that re-decides."""
+    return cfg.redecide_period_us > 0 and cfg.policy in REDECIDE_POLICIES
+
+
+def redecide_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
+                  eligible, decide_fn=None) -> SimState:
+    """Mid-flow re-decision of the eligible active flows routed before
+    ``t``: each opportunity bumps the flow's nonce and the decision
+    hashes ``f_id ^ fmix32(nonce)``. A path change keeps the flow's CC
+    rate state; only the route bookkeeping (path, RTT, route step, queue
+    wait) follows the new path."""
+    if cfg.policy not in REDECIDE_POLICIES:
+        return st
+    decide_fn = _decider(ar, cfg, decide_fn)
+    move = st.active & (st.flow_path >= 0) & eligible & (t > st.route_step)
+    nonce = st.route_nonce + move.to(torch.int32)
+    fid = ar.f_id ^ selmod.fmix32(nonce)
+    k_idx, new_path = decide_fn(t, fid, ar.f_pair, st, t)
+    changed = move & (k_idx >= 0) & (new_path != st.flow_path)
+    npad = torch.clamp_min(new_path, 0)
+    return dataclasses.replace(
+        st,
+        route_nonce=nonce,
+        flow_path=torch.where(changed, new_path, st.flow_path),
+        rtt_steps=torch.where(changed, _rtt(ar, npad, cfg.dt_us),
+                              st.rtt_steps),
+        route_step=torch.where(changed, t, st.route_step),
+        extra_wait=torch.where(changed, _path_queue_wait(st, ar, npad),
+                               st.extra_wait))
+
+
 class StepLaunchers:
-    """The fluid step's two fused phases on the card, one launcher each
-    for a run: ``monitor(t, st)`` and ``route(t, st)`` launch one kernel
-    each and return ``st``, whose tensors they update in place. A
-    launcher is built, and its fixed tensors checked, at the first step
-    and again only if the state's persistent tensors (registers,
-    ``c_cong``, rings, ``link_alive``, ``c_path``) are replaced."""
+    """The fluid step's kernels on the card, one launcher each for a run:
+    ``monitor(t, st)`` and ``route(t, st)`` launch one kernel each and
+    return ``st``, whose tensors they update in place; ``decide(t, fid,
+    pair, st, sig_step)`` launches one ``decide`` kernel (failover and
+    re-decision) through the route's launcher. A launcher is built, and
+    its fixed tensors checked, at the first step and again only if the
+    state's persistent tensors (registers, ``c_cong``, rings,
+    ``link_alive``, ``c_path``, ``redte_w``) are replaced; the step
+    updates those in place."""
 
     def __init__(self, ar: SimArrays, cfg: SimConfig):
         self.ar, self.cfg = ar, cfg
@@ -405,32 +549,38 @@ class StepLaunchers:
         self.tick(st.q_bytes, t * self.cfg.dt_us, t % HIST)
         return st
 
-    def route(self, t: int, st: SimState) -> SimState:
+    def _router(self, st: SimState):
         if self.router is None or not self.router.bound_to(st):
             self.router = ops.RouteArrivals(self.ar, st, self.cfg.policy,
                                             self.cfg.select, self.cfg.dt_us)
-        self.router(t, st)
+        return self.router
+
+    def route(self, t: int, st: SimState) -> SimState:
+        self._router(st)(t, st)
         return st
+
+    def decide(self, t: int, fid, pair, st: SimState, sig_step: int):
+        return self._router(st).decide(t, fid, pair, sig_step)
 
 
 def _cc_update(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
                path_of_flow, links_f, links_ok):
-    """The DCQCN rate law, reacting to RTT-delayed per-path queue signals
-    from the ``hist_q`` ring (RED-style marking between Kmin and Kmax,
-    MD on a reaction timer, fast recovery and probing towards a target).
-    The other laws are a later slice."""
-    if cfg.cc != "dcqcn":
-        raise NotImplementedError(
-            f"congestion control {cfg.cc!r} is not ported yet: ROADMAP.md "
-            "queue A item 4")
+    """The CC rate laws (dcqcn, dctcp, timely, hpcc), reacting to
+    RTT-delayed per-path signals from the ``hist_q``/``hist_u`` rings:
+    RED-style marking between Kmin and Kmax, MD on a reaction timer, fast
+    recovery and probing towards a target. ``cc_alpha`` and
+    ``prev_delay`` are written for every flow, the rate state for the
+    active ones, as in the reference."""
+    if cfg.cc not in CC_LAWS:
+        raise ValueError(cfg.cc)
     slot = (t - st.rtt_steps) % HIST
     # feedback only once the flow's first packets had a full RTT on its
     # current path
     have_fb = (t - st.route_step) > st.rtt_steps
     lidx = torch.clamp_min(links_f, 0)                          # (F,H)
     flat = lidx * HIST + slot[:, None]
-    q_sig = torch.where(links_ok, st.hist_q.reshape(-1)[flat], 0.0).amax(-1)
-    q_sig = torch.where(have_fb, q_sig, 0.0)
+    q_hop = torch.where(links_ok, st.hist_q.reshape(-1)[flat], 0.0)
+    q_sig = torch.where(have_fb, q_hop.amax(-1), 0.0)
 
     line = ar.path_cap[torch.clamp_min(path_of_flow, 0)]
     inv_rtt = 1.0 / st.rtt_steps.to(torch.float32)
@@ -449,12 +599,46 @@ def _cc_update(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
     marked = u01 < p_mark
 
     target = torch.maximum(st.cc_target, 0.05 * line)
-    dec = marked & can_dec
-    new_target = torch.where(dec, st.rate, target)
-    recover = st.rate + (new_target - st.rate) * 0.5 * inv_rtt
-    probe = torch.where(st.rate >= 0.95 * new_target, ai, 0.0)
-    rate = torch.where(dec, st.rate * cfg.md_factor, recover + probe)
-    new_target = torch.where(dec, new_target, new_target + probe)
+
+    def aimd(dec_event, md_rate):
+        """The shared DCQCN-shaped decrease, fast recovery (halfway to
+        target per RTT) and probe (+ai_frac of line per RTT)."""
+        dec = dec_event & can_dec
+        new_target = torch.where(dec, st.rate, target)
+        recover = st.rate + (new_target - st.rate) * 0.5 * inv_rtt
+        probe = torch.where(st.rate >= 0.95 * new_target, ai, 0.0)
+        rate = torch.where(dec, st.rate * md_rate, recover + probe)
+        new_target = torch.where(dec, new_target, new_target + probe)
+        return rate, new_target, dec
+
+    # scalar / tensor is written tensor / tensor: PyTorch turns ``c / t``
+    # into ``c * (1 / t)``, which can round differently
+    alpha, pdel = st.cc_alpha, st.prev_delay
+    if cfg.cc == "dcqcn":
+        rate, new_target, dec = aimd(marked, cfg.md_factor)
+    elif cfg.cc == "dctcp":
+        alpha = st.cc_alpha * (1 - 1 / 16) + marked.to(torch.float32) / 16
+        rate, new_target, dec = aimd(marked, 1.0 - alpha / 2)
+    elif cfg.cc == "timely":
+        d_hop = torch.where(links_ok, st.hist_q.reshape(-1)[flat]
+                            / ar.link_cap[lidx], 0.0)
+        d_us = torch.where(have_fb, d_hop.amax(-1), 0.0)
+        grad = d_us - st.prev_delay
+        t_high = torch.full_like(line, 2.0 * kmin) / line
+        rate, new_target, dec = aimd(((d_us > t_high) | (grad > 0))
+                                     & (d_us > 0), cfg.md_factor)
+        pdel = d_us
+    else:                                   # hpcc
+        eta = 0.95
+        u_hop = torch.where(links_ok, st.hist_u.reshape(-1)[flat], 0.0)
+        u_sig = torch.where(have_fb, u_hop.amax(-1), 0.0)
+        bdp = line * torch.clamp_min(st.rtt_steps.to(torch.float32)
+                                     * cfg.dt_us, 1.0)
+        u_tot = u_sig + q_sig / torch.clamp_min(bdp, 1.0)   # inflight-based U
+        corr = torch.clamp(torch.full_like(u_tot, eta)
+                           / torch.clamp_min(u_tot, 1e-3), 0.3, 1.0)
+        rate, new_target, dec = aimd(u_tot > eta, 1.0)      # md via corr
+        rate = torch.where(dec, st.rate * corr, rate)
 
     rate = torch.clamp(rate, 0.001 * line, line)
     new_target = torch.clamp(new_target, 0.001 * line, line)
@@ -463,4 +647,5 @@ def _cc_update(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
     return dataclasses.replace(
         st, rate=torch.where(act, rate, st.rate),
         cc_target=torch.where(act, new_target, st.cc_target),
+        cc_alpha=alpha, prev_delay=pdel,
         last_dec=torch.where(act, last_dec, st.last_dec))

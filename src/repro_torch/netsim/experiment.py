@@ -3,22 +3,25 @@ Counterpart of ``repro/netsim/experiment.py`` (``ExpSpec``,
 ``build_world``, ``make_flows``, ``spec_to_cfg``, ``run_experiment``).
 
 ``run_experiment(spec)`` runs on the GPU; pass ``device="cpu"`` to run
-the same path on the CPU with the kernels' plain versions. Specs outside
-this slice of the port (the packet engine, other policies and CC laws,
-schedules, load schedules, the training co-simulation, checks) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+the same path on the CPU with the kernels' plain versions. Every policy
+but the sweep, every CC law, the scenarios' fail and degrade schedules,
+``ctrl_period_us``, ``sig_delay_scale``, ``redecide_period_us``,
+``n_subflows`` and ``load_sched`` run; the packet engine, the sweep, the
+training co-simulation and ``checks`` raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import os
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 from repro_torch import device as devmod
 from repro_torch.netsim import fluid, metrics, paths, scenarios
 from repro_torch.netsim.engine import SimConfig
 from repro_torch.traffic import cdf as cdfmod
+from repro_torch.traffic import sched as schedmod
 from repro_torch.traffic.gen import generate
 
 
@@ -35,7 +38,7 @@ class ExpSpec:
     seed: int = 0
     pairs: str = "main"              # main | all | <src>-<dst>
     bg_load: float = 0.0             # cross-traffic on the other pairs
-    load_sched: str = ""             # per-pair load schedule (later slice)
+    load_sched: str = ""             # per-pair load schedule (traffic/sched.py)
     cap_scale: float = 0.125
     sig_delay_scale: float = 1.0     # routing-signal propagation-delay scale
     ctrl_period_us: int = 100_000    # C_path re-install period (0 = frozen)
@@ -112,10 +115,6 @@ def background_pair_ids(table, fg_ids) -> list:
 
 
 def make_flows(spec: ExpSpec, scen: scenarios.Scenario, table):
-    if spec.load_sched:
-        raise NotImplementedError(
-            "load schedules (traffic/sched.py) are not ported yet: "
-            "ROADMAP.md queue A item 1")
     if spec.cosim_model:
         raise NotImplementedError(
             "the training co-simulation overlay is not ported yet: "
@@ -123,11 +122,17 @@ def make_flows(spec: ExpSpec, scen: scenarios.Scenario, table):
     fg_ids = traffic_pair_ids(spec, scen, table)
     bg_ids = (background_pair_ids(table, fg_ids)
               if spec.bg_load > 0 else None)
+    kw = {}
+    if spec.load_sched:
+        sched_t, fg_rows, bg_rows = schedmod.build(
+            spec.load_sched, spec.duration_us, table, scen,
+            fg_ids, bg_ids or ())
+        kw = dict(sched_t=sched_t, load_rows=fg_rows, bg_rows=bg_rows)
     return generate(table, cdfmod.WORKLOADS[spec.workload], spec.load,
                     spec.duration_us, pair_ids=fg_ids,
                     seed=spec.seed, cap_scale=spec.cap_scale,
                     bg_pair_ids=bg_ids, bg_load=spec.bg_load,
-                    n_subflows=spec.n_subflows)
+                    n_subflows=spec.n_subflows, **kw)
 
 
 def spec_to_cfg(spec: ExpSpec, scen: scenarios.Scenario) -> SimConfig:
@@ -171,3 +176,10 @@ def run_experiment(spec: ExpSpec, device=devmod.DEFAULT):
     stats = metrics.fct_stats(final, table, flows, cfg)
     util = metrics.link_utilization(final, arrs, cfg)
     return stats, util, (t, table, flows, cfg, final)
+
+
+def compare_policies(base: ExpSpec, policies: Sequence[str],
+                     device=devmod.DEFAULT) -> Dict[str, metrics.FCTStats]:
+    """``run_experiment`` of ``base`` under each policy -> FCT stats."""
+    return {p: run_experiment(dataclasses.replace(base, policy=p),
+                              device=device)[0] for p in policies}

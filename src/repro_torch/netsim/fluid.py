@@ -1,30 +1,43 @@
 """Flow-level fluid simulator (counterpart of ``repro/netsim/fluid.py``),
 as a host loop over an eager PyTorch step.
 
-The model is the reference's: flows are routed at arrival and pinned,
-share links max-min-proportionally (each link scales its flows by
-``min(1, cap/offered)``), per-link byte queues integrate overload, the
-DCQCN rate law reacts to RTT-delayed queue signals from the history
-rings, and the LCMP switch runs inside the loop. On the card the monitor
-tick is one ``kernels.monitor_tick`` launch and the arrival routing one
-``kernels.route_arrivals`` launch, through launchers ``make_step`` keeps
-for the run (``engine.StepLaunchers``); on the CPU the same phases run
-their plain versions. The reference scans ``make_step`` under
-``jax.jit``; here ``run`` calls the step once per ``dt`` from Python.
-The step mutates the state's rings and registers (on the card also
-``c_cong`` and the routed flows' fields) in place and returns the new
-state.
+The model is the reference's: flows are routed at arrival and pinned
+(``fatpaths`` and ``lcmp_r`` may re-decide on a ``redecide_period_us``
+epoch), share links max-min-proportionally (each link scales its flows
+by ``min(1, cap/offered)``), per-link byte queues integrate overload,
+the CC law reacts to RTT-delayed signals from the history rings, and
+the LCMP switch runs inside the loop. Link trips reroute the flows on
+dead paths; degraded links serve less, silently; the control plane
+re-installs ``C_path`` every ``ctrl_period_us`` while a schedule can
+change capacities; RedTE re-weights every ``redte_period_us``.
+
+The step order is the reference's (``repro/netsim/fluid.py``): trip-step
+reroute, monitor tick, control tick, arrival routing, re-decision epoch,
+offered load, degraded capacity, CC, drain, completion, RedTE tick. The
+trip, refresh, epoch and RedTE steps are known when the run starts, so
+the host branches on ``t`` and the step makes no host sync. On the card
+the monitor tick is one ``kernels.monitor_tick`` launch, the arrival
+routing one ``kernels.route_arrivals`` launch, and each trip step's
+reroute and each epoch's re-decision one ``kernels.decide`` launch,
+through launchers ``make_step`` keeps for the run
+(``engine.StepLaunchers``); on the CPU the same phases run their plain
+versions. The reference scans ``make_step`` under ``jax.jit``; here
+``run`` calls the step once per ``dt`` from Python. The step mutates
+the state's rings, registers, ``link_alive``, ``c_path`` and
+``redte_w`` (on the card also ``c_cong`` and the routed flows' fields)
+in place and returns the new state.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.netsim.engine import (  # noqa: F401  (build & co. re-exported)
     HIST, SimArrays, SimConfig, SimState, StepLaunchers, _cc_update,
-    _route_arrivals, attach_link_caps, build, check_slice, ctrl_tick,
-    monitor_tick)
+    _reroute_dead, _route_arrivals, attach_link_caps, build, check_slice,
+    ctrl_tick, monitor_tick, redecide_tick, redte_tick, wants_redecide)
 
 
 def make_step(ar: SimArrays, cfg: SimConfig):
@@ -35,21 +48,47 @@ def make_step(ar: SimArrays, cfg: SimConfig):
     q_max = float(cfg.buffer_bytes * cfg.cap_scale)
     if ar.link_cap.is_cuda:         # one launcher per fused phase and run
         launch = StepLaunchers(ar, cfg)
-        tick, route = launch.monitor, launch.route
+        tick, route, decide = launch.monitor, launch.route, launch.decide
     else:
+        decide = None               # engine.decide: the plain version
+
         def tick(t, st):
             return monitor_tick(t, st, ar, cfg)
 
         def route(t, st):
             return _route_arrivals(t, st, ar, cfg)
 
+    # the steps at which a link trips, known when the run starts (one
+    # host read of the schedule here, none in the step); a trip before
+    # step 0 takes its link down at step 0 with no flow to reroute
+    trips, down = set(), set()
+    if cfg.has_failures:
+        fail = ar.link_fail_step.cpu().numpy()
+        trips = {int(s) for s in np.unique(fail[(fail >= 0)
+                                                & (fail < cfg.num_steps)])}
+        down = trips | ({0} if (fail < 0).any() else set())
+    epoch = (max(cfg.redecide_period_us // cfg.dt_us, 1)
+             if wants_redecide(cfg) else 0)
+
     def step(st: SimState, t: int) -> SimState:
+        # 0) link trips + lazy failover: flows pinned to a dead path
+        # re-decide under their own law (before this step's monitor tick)
+        if t in down:
+            st.link_alive.copy_(t < ar.link_fail_step)
+        if t in trips:
+            st = _reroute_dead(t, st, ar, cfg, decide)
+
         # 1) switch monitor tick + 1b) control-plane refresh
         st = tick(t, st)
         st = ctrl_tick(t, st, ar, cfg)
 
         # 2) arrivals + routing decisions (the herd batch)
         st = route(t, st)
+
+        # 2b) mid-flow re-decision epoch (every flow eligible)
+        if epoch and t % epoch == 0:
+            st = redecide_tick(t, st, ar, cfg, torch.ones_like(st.active),
+                               decide)
 
         # 3) offered load per link (the reference's segment_sum)
         pf = st.flow_path
@@ -61,8 +100,13 @@ def make_step(ar: SimArrays, cfg: SimConfig):
                               device=contrib.device)
         offered.index_add_(0, lidx.reshape(-1), contrib.reshape(-1))
 
-        # 4) per-link share factor and queue integration
-        cap = torch.where(st.link_alive, ar.link_cap, 1e-9)
+        # 4) per-link share factor and queue integration; degradation is
+        # silent: flows stay pinned, only CC and the registers react
+        cap_nom = ar.link_cap
+        if cfg.has_degrade:
+            cap_nom = cap_nom * torch.where(t >= ar.link_deg_step,
+                                            ar.link_deg_factor, 1.0)
+        cap = torch.where(st.link_alive, cap_nom, 1e-9)
         factor_l = torch.clamp_max(cap / torch.clamp_min(offered, 1e-9), 1.0)
         served = torch.minimum(offered, cap)
         q = torch.clamp(st.q_bytes + (offered - cap) * dt, 0.0, q_max)
@@ -90,12 +134,15 @@ def make_step(ar: SimArrays, cfg: SimConfig):
         prop = ar.path_prop[torch.clamp_min(pf, 0)].to(torch.float32)
         fct = ((t + 1) * dt - ar.f_arr_us + prop
                + 0.5 * (st.extra_wait + qw_now))
-        return dataclasses.replace(
+        st = dataclasses.replace(
             st,
             remaining=torch.clamp_min(remaining, 0.0),
             active=st.active & ~newly_done,
             done=st.done | newly_done,
             fct_us=torch.where(newly_done, fct, st.fct_us))
+
+        # 7) RedTE periodic split-ratio re-optimization
+        return redte_tick(t, st, ar, cfg)
 
     return step
 

@@ -154,22 +154,21 @@ def test_select_egress_bit_exact(P, params):
 
 
 def test_select_egress_broadcast_candidates_and_weights_out_of_slice():
+    # broadcast (P,) candidates, without and with the capacity weights of
+    # lcmp_w (ported since: the weighted stage 2 equals the reference's)
     fids = np.arange(50, dtype=np.uint32)
     c_path = np.array([10, 20, 30, 40], np.int32)
     c_cong = np.array([0, 5, 250, 9], np.int32)
     valid = np.array([True, True, False, True])
-    r_idx, _ = rselect.select_egress(fids, c_path, c_cong, valid)
-    p_idx, _ = pselect.select_egress(torch.from_numpy(fids.astype(np.int64)),
-                                     torch.from_numpy(c_path),
-                                     torch.from_numpy(c_cong),
-                                     torch.from_numpy(valid))
-    _eq(p_idx, r_idx)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pselect.select_egress(torch.zeros(3, dtype=torch.int64),
-                              torch.zeros(4, dtype=torch.int32),
-                              torch.zeros(4, dtype=torch.int32),
-                              torch.ones(4, dtype=torch.bool),
-                              weights=torch.ones(4, dtype=torch.int32))
+    weights = np.array([400, 0, 100, 25], np.int32)
+    for w in (None, weights):
+        r_idx, _ = rselect.select_egress(fids, c_path, c_cong, valid,
+                                         weights=w)
+        p_idx, _ = pselect.select_egress(
+            torch.from_numpy(fids.astype(np.int64)), torch.from_numpy(c_path),
+            torch.from_numpy(c_cong), torch.from_numpy(valid),
+            weights=None if w is None else torch.from_numpy(w))
+        _eq(p_idx, r_idx)
 
 
 @pytest.mark.parametrize("P", range(2, 9))

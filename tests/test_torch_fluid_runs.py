@@ -49,21 +49,45 @@ def test_testbed8_full_run_within_bands(policy):
     assert np.isfinite(p_util).all() and (p_util <= 1.0 + 1e-6).all()
 
 
-@pytest.mark.parametrize("world,policy", [("testbed8", "lcmp"),
-                                          ("testbed8", "ecmp"),
-                                          ("wan2000", "lcmp"),
-                                          ("wan2000", "ecmp")])
-def test_chip_smoke_reference_numbers_are_the_jax_packages(world, policy):
-    # chip_smoke.py holds the card's runs to these numbers; pin them to
-    # what the JAX package computes on the same specs
+def _chip_smoke():
     sys.path.insert(0, REPO)
     try:
         import chip_smoke
     finally:
         sys.path.remove(REPO)
-    spec = rexp.ExpSpec(**chip_smoke.WORLDS[world], policy=policy)
+    return chip_smoke
+
+
+@pytest.mark.parametrize("run", list(_chip_smoke().RUNS))
+def test_chip_smoke_reference_numbers_are_the_jax_packages(run):
+    # chip_smoke.py holds the card's runs to these numbers; pin them to
+    # what the JAX package computes on the same specs
+    chip_smoke = _chip_smoke()
+    spec = rexp.ExpSpec(**chip_smoke.RUNS[run])
     stats, _, _ = rexp.run_experiment(spec)
-    p50, p99, completed, offered = chip_smoke.REFERENCE[(world, policy)]
+    p50, p99, completed, offered = chip_smoke.REFERENCE[run]
     assert abs(stats.p50 - p50) <= 0.005 * p50      # printed to 3-4 digits
     assert abs(stats.p99 - p99) <= 0.005 * p99
     assert (stats.completed, stats.offered) == (completed, offered)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(topology="testbed8_failover:fail_ms=5", load=0.3, policy="lcmp"),
+    dict(topology="staleness:deg_ms=5", load=0.4, policy="lcmp_r",
+         redecide_period_us=4_000),
+], ids=["failover", "epochs"])
+def test_chip_smoke_plain_calls_see_the_cpu_steps_plain_versions(kw):
+    # on the CPU every phase runs its plain version, so the check the card's
+    # runs must pass with no call sees each of them, and the failover's and
+    # re-decision's decisions number what chip_smoke expects of `decide`
+    chip_smoke = _chip_smoke()
+    from repro_torch.kernels import ref
+    saved = dict(vars(ref))
+    spec = pexp.ExpSpec(duration_us=10_000, **kw)
+    with chip_smoke.PlainCalls() as plain:
+        _, _, (_, _, _, cfg, _) = pexp.run_experiment(spec, device="cpu")
+    assert plain.called["monitor_tick_ref"] == cfg.num_steps
+    assert plain.called["route_arrivals_ref"] == cfg.num_steps
+    assert plain.called["decide_ref"] == chip_smoke.expected_decides(cfg) > 0
+    assert plain.calls > 3 * cfg.num_steps
+    assert all(vars(ref)[k] is v for k, v in saved.items())

@@ -139,7 +139,7 @@ def test_lcmp_decide_wide_sets_run_the_plain_version_on_cpu(jref):
     _eq(ops.lcmp_decide(*_torch(*inp)), want)
     assert ops.counts() == {"cong_update": 0, "lcmp_decide": 0,
                             "monitor_tick": 0, "route_arrivals": 0,
-                            "qsr_int8": 0, "qsr_dequant": 0}
+                            "decide": 0, "qsr_int8": 0, "qsr_dequant": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -151,6 +151,15 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.cong_update(st, torch.zeros(3, dtype=torch.int32, device="meta"),
                         0, tb)
+
+
+def test_decide_wrapper_is_the_plain_version_only():
+    # off the CPU only a run's launcher decides (RouteArrivals.decide), so
+    # a decision never builds and checks a launcher of its own
+    ar = types.SimpleNamespace(
+        pair_cand=torch.zeros((1, 2), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match=r"RouteArrivals\.decide"):
+        ops.decide(0, None, None, None, ar, "lcmp")
 
 
 # ------------------------------------------------------- on the card (cuda)
@@ -333,10 +342,13 @@ def test_cuda_monitor_tick_matches_plain(cuda, cs, n_ports):
     assert r["max_abs_err"] == 0
 
 
+LAWS = ref.LAWS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("world", ["testbed8", "wan2000", "geo"])
 @pytest.mark.parametrize("kind", ["live", "dead", "cut", "fallback"])
-@pytest.mark.parametrize("policy", ["lcmp", "ecmp"])
+@pytest.mark.parametrize("policy", LAWS)
 def test_cuda_route_arrivals_matches_plain(cuda, cs, world, kind, policy):
     from repro_torch.netsim import experiment as pexp
     from repro_torch.netsim import fluid
@@ -355,12 +367,42 @@ def test_cuda_route_arrivals_matches_plain(cuda, cs, world, kind, policy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["lcmp", "ecmp"])
+@pytest.mark.parametrize("policy", LAWS)
 def test_cuda_route_arrivals_bulk_matches_plain(cuda, cs, policy):
     from repro_torch.core.select import SelectParams
     ar, st = cs.bulk_route_world(cuda)
     r = cs.check_route(cuda, ar, st, policy, f"bulk {policy}", 0,
                        SelectParams(), 200, [0, 1, 2, 3])
+    assert r["max_abs_err"] == 0 and r["no_candidate"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", ["testbed8", "wan2000", "geo"])
+@pytest.mark.parametrize("kind", ["dead", "fallback"])
+@pytest.mark.parametrize("policy", LAWS)
+def test_cuda_decide_matches_plain(cuda, cs, world, kind, policy):
+    # every flow's decision: the failover's read (ring step -1), a
+    # mid-run step, salted keys
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import fluid
+    _, table, flows, cfg = pexp.build_experiment(
+        pexp.ExpSpec(**cs.CHECK_WORLDS[world], policy=policy))
+    arrs, st = fluid.build(table, flows, cfg, device=cuda)
+    ar, st = cs.world_state(cuda, dict(arrs=arrs, state=st), kind, seed=5)
+    r = cs.check_decide(cuda, ar, st, policy, f"{world} {policy} {kind}", 0,
+                        cfg.select, [(0, -1, False), (900, 899, False),
+                                     (900, 900, True)])
+    assert r["max_abs_err"] == 0 and r["decided"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", LAWS)
+def test_cuda_decide_bulk_matches_plain(cuda, cs, policy):
+    from repro_torch.core.select import SelectParams
+    ar, st = cs.bulk_route_world(cuda)
+    r = cs.check_decide(cuda, ar, st, policy, f"bulk {policy}", 0,
+                        SelectParams(), [(2, 1, False), (0, -1, False),
+                                         (3, 3, True)])
     assert r["max_abs_err"] == 0 and r["no_candidate"] > 0
 
 
@@ -392,12 +434,50 @@ def test_cuda_step_launches_each_fused_kernel_once(cuda, policy):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kw,decides", [
+    (dict(topology="testbed8_failover:fail_ms=50", load=0.3), 1),
+    (dict(topology="staleness:deg_ms=40", load=0.4, seed=1, policy="lcmp_r",
+          redecide_period_us=10_000), 6),
+    (dict(topology="testbed8", load=0.3, policy="redte", cc="hpcc"), 0)])
+def test_cuda_schedule_steps_launch_decide(cuda, kw, decides):
+    # 300 steps of a schedule run: one decide launch per trip step and
+    # epoch, and the same routes and link state as the CPU's plain steps
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import fluid
+    _, table, flows, cfg = pexp.build_experiment(
+        pexp.ExpSpec(**kw, duration_us=100_000))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        arrs, st = fluid.build(table, flows, cfg, device=dev)
+        step = fluid.make_step(arrs, cfg)
+        before = ops.counts()
+        for t in range(300):
+            st = step(st, t)
+        after = ops.counts()
+        launched = {n: after[n] - before[n] for n in after}
+        want = 1 if dev.type == "cuda" else 0
+        assert launched["decide"] == decides * want
+        assert launched["route_arrivals"] == 300 * want
+        out[dev.type] = [getattr(st, n).cpu() for n in
+                         ("flow_path", "route_nonce", "link_alive", "c_path",
+                          "redte_w")]
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g, c)
+
+
+@pytest.mark.cuda
 def test_cuda_fused_launchers_check_inputs(cuda, cs):
     from repro_torch.core.select import SelectParams
     ar, st = cs.bulk_route_world(cuda)
     with pytest.raises(ValueError, match="routes"):
-        ops.RouteArrivals(ar, st, "ucmp", SelectParams(), 200)
+        ops.RouteArrivals(ar, st, "sweep", SelectParams(), 200)
     launch = ops.RouteArrivals(ar, st, "lcmp", SelectParams(), 200)
+    with pytest.raises(ValueError, match="decide fid"):
+        launch.decide(0, ar.f_id.int(), ar.f_pair, 0)
+    with pytest.raises(ValueError, match="decide pair"):
+        launch.decide(0, ar.f_id, ar.f_pair.clone().fill_(1 << 20), 0)
+    with pytest.raises(ValueError, match="int32"):
+        launch.decide(1 << 31, ar.f_id, ar.f_pair, 0)
     bad = dataclasses.replace(st, rate=st.rate.double())
     with pytest.raises(ValueError, match="rate"):
         launch(0, bad)
