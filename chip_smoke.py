@@ -19,7 +19,9 @@ the script exits non-zero and prints no result line. Phases:
    flow 0 among pads, the congestion fallback) and must leave every flow
    they do not route untouched; ``decide`` (every law) decides all of
    wan2000's flows and 2^20 bulk flows (dead links, the fallback, the
-   failover's ring step -1, salted keys); a ``lcmp_decide`` call with 9
+   failover's ring step -1, salted keys); both also with a random law
+   per pair (the sweep's ``pair_policy``) on the merged world of the
+   fig5 group and at the bulk shape; a ``lcmp_decide`` call with 9
    candidates must raise on the card;
 4. run: every run of ``RUNS`` through ``run_experiment`` (fig5's
    testbed8 row with all its policies, wan2000 lcmp and ecmp, fig10's CC
@@ -32,16 +34,24 @@ the script exits non-zero and prints no result line. Phases:
 5. profile: where a testbed8 lcmp step's time goes (torch.profiler):
    wall and device-busy time per step, idle share, kernels per step, the
    two fused kernels' device time;
-6. device_vs_cpu: testbed8 lcmp and testbed8_failover lcmp (a trip at
-   50 ms) run on the card and on the CPU (plain versions) must route the
-   same flows the same way;
-7. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
+6. sweep: each group of ``SWEEPS`` (fig5's whole 15-cell grid, the
+   wan2000 pair, the failover pair, the re-decision rows) through
+   ``run_sweep`` as one merged world: one ``monitor_tick`` and one
+   ``route_arrivals`` launch a step for the whole group, ``decide`` per
+   trip step and epoch, no plain version; each cell against its
+   reference number within the bands and against its sequential run to
+   the printed digits; the batched wall time against the cells'
+   sequential sum, peak memory; then the profile of a merged fig5 step;
+7. device_vs_cpu: testbed8 lcmp, testbed8_failover lcmp (a trip at
+   50 ms) and a 3-cell sweep group run on the card and on the CPU (plain
+   versions) must route the same flows the same way;
+8. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
    cut to 4 layers, one 4096-token sequence per pod, 2 pods on the card):
    3 steps with the int8 wire, then 1 f32-wire step from the state after
    step 2; the int8 gradient against the exact pod mean block by block,
    the route binding and wire bytes, the qsr launches, the two paths'
    parameters against AdamW's bound; time split, tokens/s, peak memory;
-8. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card and
+9. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card and
    on the CPU from the same weights and batch;
 then the ``kernels`` summary line and the result line. Phase 3 also
 holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
@@ -59,6 +69,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -134,6 +145,34 @@ REFERENCE = {"testbed8/lcmp": (13.27, 87.80, 3124, 3134),
              "staleness/amp": (48.78, 88.07, 2577, 2578),
              "wan2000_deg/lcmp": (1.111, 5.294, 10335, 10337),
              "wan2000_deg/fatpaths": (1.131, 14.77, 10337, 10337)}
+# phase sweep: each group one static group of run_sweep, a list of
+# ExpSpec fields. fig5 is the figure's whole grid at its default scale
+# (benchmarks/figures.py fig5_testbed_fct: 3 loads x 5 policies); the
+# others are the wan2000 pair, the failover pair and fig_multipath's
+# testbed re-decision rows with lcmp beside them
+FIG5_POLICIES = ("ecmp", "ucmp", "redte", "lcmp", "lcmp_w")
+SWEEPS = {
+    "fig5": [dict(TESTBED8, load=load, policy=p) for load in (0.3, 0.5, 0.8)
+             for p in FIG5_POLICIES],
+    "wan2000": [dict(WAN2000, policy=p) for p in ("lcmp", "ecmp")],
+    "failover": [dict(FAILOVER, policy=p) for p in ("lcmp", "ecmp")],
+    "staleness_epoch": [dict(STALENESS, policy=p, **EPOCH)
+                        for p in ("fatpaths", "lcmp_r", "lcmp")],
+}
+# the JAX package's run_sweep on the sweep cells that no run of RUNS
+# covers (p50, p99, completed, offered), computed on the CPU and pinned by
+# tests/test_torch_sweep_reference.py; the other cells take REFERENCE's
+SWEEP_REFERENCE = {"fig5/0.3/ecmp": (4.362, 43.53, 1870, 1870),
+                   "fig5/0.3/ucmp": (11.15, 42.26, 1870, 1870),
+                   "fig5/0.3/redte": (4.407, 42.38, 1870, 1870),
+                   "fig5/0.3/lcmp": (4.172, 14.30, 1869, 1870),
+                   "fig5/0.3/lcmp_w": (4.340, 7.830, 1870, 1870),
+                   "fig5/0.8/ecmp": (13.86, 243.7, 5003, 5016),
+                   "fig5/0.8/ucmp": (63.57, 83.62, 5016, 5016),
+                   "fig5/0.8/redte": (8.475, 176.0, 5014, 5016),
+                   "fig5/0.8/lcmp": (39.51, 200.9, 4986, 5016),
+                   "fig5/0.8/lcmp_w": (16.67, 83.07, 5007, 5016),
+                   "staleness_epoch/lcmp": (6.182, 47.70, 2576, 2578)}
 # orderings of the reference that each pair of runs must keep (a, b, stat):
 # stat of run a below run b's
 ORDERINGS = [("testbed8/lcmp", "testbed8/ecmp", "p99"),
@@ -185,6 +224,23 @@ def require(cond, what: str) -> None:
 
 def within(got: float, want: float, band: float) -> bool:
     return abs(got - want) <= band * abs(want)
+
+
+def sweep_cells(group: str) -> list:
+    """``(name, ExpSpec fields, run)`` of each cell of ``SWEEPS[group]``:
+    its name (with the load where the group's loads differ) and the run
+    of ``RUNS`` on the same spec, or None."""
+    from repro_torch.netsim import experiment as pexp
+    kws = SWEEPS[group]
+    loads = len({kw["load"] for kw in kws}) > 1
+    out = []
+    for kw in kws:
+        name = "/".join([group] + ([str(kw["load"])] if loads else [])
+                        + [kw["policy"]])
+        run = next((r for r, rk in RUNS.items()
+                    if pexp.ExpSpec(**rk) == pexp.ExpSpec(**kw)), None)
+        out.append((name, kw, run))
+    return out
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -445,7 +501,14 @@ def candidate_bytes(arr: dict, pairs: np.ndarray, policy: str, sig_step: int,
     and the distinct ring cells they read; per path its C_path (lcmp
     family), capacity (lcmp_w, ucmp, wcmp) or hop count (fatpaths); the
     pairs' RedTE rows (redte); each link's capacity, degrade step and
-    factor (matchrdma). ``arr``: numpy arrays by field name."""
+    factor (matchrdma). ``arr``: numpy arrays by field name. Under
+    ``"sweep"`` each pair's law code (4 bytes) and then each law's bytes
+    over its own pairs."""
+    if policy == "sweep":
+        code = arr["pair_policy"][pairs]
+        return 4 * pairs.size + sum(
+            candidate_bytes(arr, pairs[code == c], LAWS[c], sig_step, ring)
+            for c in np.unique(code))
     K, H = arr["pair_cand"].shape[1], arr["path_links"].shape[1]
     nbytes = 4 * K * pairs.size
     cand = np.unique(arr["pair_cand"][pairs])
@@ -469,7 +532,16 @@ def candidate_bytes(arr: dict, pairs: np.ndarray, policy: str, sig_step: int,
 
 def _numpy_arrays(ar) -> dict:
     return {n: getattr(ar, n).cpu().numpy() for n in (
-        "arrivals", "f_pair", "pair_cand", "path_links", "path_sig_delay")}
+        "arrivals", "f_pair", "pair_cand", "path_links", "path_sig_delay",
+        "pair_policy") if getattr(ar, n) is not None}
+
+
+def row_laws(ar, pairs: torch.Tensor, policy: str) -> np.ndarray:
+    """The law of each decision for pairs ``pairs``: ``policy``, or under
+    ``"sweep"`` each pair's own (``ar.pair_policy``)."""
+    if policy != "sweep":
+        return np.full(pairs.shape[0], policy)
+    return np.asarray(LAWS)[ar.pair_policy[pairs].cpu().numpy()]
 
 
 def route_bound(ar, st, t: int, policy: str, out) -> dict:
@@ -530,7 +602,7 @@ def check_route(dev, ar, st0, policy: str, label: str, iters: int, select,
     from repro_torch.kernels import ops, ref
     st_k, st_p = clone_state(st0), st0
     before = ops.counts()["route_arrivals"]
-    err, routed, dropped, fallback, dead = 0.0, 0, 0, 0, 0
+    err, routed, dropped, fallback, dead, laws = 0.0, 0, 0, 0, 0, set()
     for t in rows:
         ops.route_arrivals(t, st_k, ar, policy, select, dt_us)
         st_p = ref.route_arrivals_ref(t, st_p, ar, policy, select, dt_us)
@@ -542,16 +614,21 @@ def check_route(dev, ar, st0, policy: str, label: str, iters: int, select,
         routed += int(valid.any(1).sum())
         dropped += int((~valid.any(1)).sum())
         dead += int((~valid & (cand >= 0)).sum())
-        if policy in VIEW_LAWS and flows.numel():
+        law = row_laws(ar, ar.f_pair[flows], policy)
+        laws |= set(law[valid.any(1).cpu().numpy()])
+        view = torch.from_numpy(np.isin(law, VIEW_LAWS)).to(dev)
+        if bool(view.any()):
             _, c_cong = ref.lcmp_scores(t, cand, hop, st_p, ar)
             low = torch.where(valid, c_cong, 256).amin(1)
-            fallback += int(((low >= select.cong_fallback) & valid.any(1)).sum())
+            fallback += int(((low >= select.cong_fallback) & valid.any(1)
+                             & view).sum())
     require(err == 0, f"route_arrivals {label}: kernel equals plain, written "
             f"and unwritten fields (err {err})")
     require(ops.counts()["route_arrivals"] == before + len(rows),
             f"route_arrivals {label}: one launch a row, all-pad rows too")
     out = dict(shape=label, rows=rows, routed=routed, no_candidate=dropped,
-               dead_candidates=dead, fallback=fallback, max_abs_err=err)
+               dead_candidates=dead, fallback=fallback, laws=len(laws),
+               max_abs_err=err)
     if iters:
         full = int(np.argmax((ar.arrivals >= 0).sum(1).cpu().numpy()))
         launch = ops.RouteArrivals(ar, st_k, policy, select, dt_us)
@@ -701,6 +778,32 @@ def world_state(dev, world: dict, kind: str, seed: int):
     return carry.from_reference(arrs, flat, device=dev)
 
 
+def mixed_laws(ar, seed: int):
+    """``ar`` with a random law per pair drawn over all ten codes, the
+    pairs that carry flows taking every law in turn when they are ten or
+    more (``pair_policy``, as a merged sweep world holds it)."""
+    import dataclasses
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, len(LAWS), ar.pair_cand.shape[0])
+    used = np.unique(ar.f_pair.cpu().numpy())
+    codes[used] = rng.permutation(len(used)) % len(LAWS)
+    return dataclasses.replace(ar, pair_policy=torch.from_numpy(
+        codes.astype(np.int32)).to(ar.pair_cand.device))
+
+
+def merged_shape(dev) -> dict:
+    """The merged world of the fig5 group (``SWEEPS["fig5"]``, 15 cells)
+    from the port's own build, in ``main_path_shapes``' layout."""
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import sweep
+    g = sweep.build_group([pexp.ExpSpec(**kw) for kw in SWEEPS["fig5"]],
+                          device=dev)
+    return dict(L=g.arrs.link_cap.shape[0], A=g.arrs.arrivals.shape[1],
+                K=g.arrs.pair_cand.shape[1], H=g.arrs.path_links.shape[1],
+                C=len(g.specs), tables=g.arrs.tables, arrs=g.arrs,
+                state=g.state, cfg=g.cfg)
+
+
 def route_checks(dev, shapes) -> tuple:
     """route_arrivals at each world's shape (every law; live, dead, cut
     and fallback states; the rows of ``check_rows``, and for the dead
@@ -743,6 +846,42 @@ def route_checks(dev, shapes) -> tuple:
                         20 if policy in ("lcmp", "ecmp") else 0,
                         SelectParams(), 200, list(range(b["T"])))
         (timed if policy in ("lcmp", "ecmp") else cases).append(r)
+    r = check_route(dev, mixed_laws(ar, 7), st, "sweep", f"bulk sweep (a law "
+                    f"per pair) A={b['A']} L={b['L']} K={b['K']} H={b['H']}",
+                    0, SelectParams(), 200, list(range(b["T"])))
+    require(r["laws"] == len(LAWS), "route bulk sweep: every law decided")
+    cases.append(r)
+    return timed, cases
+
+
+def sweep_route_checks(dev, w: dict) -> tuple:
+    """route_arrivals with a random law per pair (``mixed_laws``) on the
+    merged fig5 world: live (timed), dead, cut and fallback states with a
+    degrade schedule, the rows of ``check_rows``. Returns (timed rows,
+    other cases)."""
+    rows = check_rows(w["arrs"].arrivals.cpu().numpy(),
+                      int(w["arrs"].path_sig_delay.max()))
+    timed, cases = [], []
+    for i, kind in enumerate(("live", "dead", "cut", "fallback")):
+        ar, st = world_state(dev, w, kind, seed=91 + i)
+        ar = mixed_laws(ar, i)
+        extra = [stranded_row(ar, st)] if kind == "dead" else []
+        r = check_route(dev, ar, st, "sweep",
+                        f"fig5 merged {w['C']} cells, a law per pair, {kind} "
+                        f"A={w['A']} L={w['L']} K={w['K']} H={w['H']}",
+                        200 if kind == "live" else 0, w["cfg"].select,
+                        w["cfg"].dt_us, sorted(set(rows + extra) - {-1}))
+        (timed if kind == "live" else cases).append(r)
+        if kind == "cut":
+            require(r["routed"] == 0 and r["no_candidate"] > 0,
+                    "route fig5 merged cut: no flow has a candidate")
+            continue
+        require(r["routed"] > 0 and r["laws"] >= 5,
+                f"route fig5 merged {kind}: flows of several laws routed")
+        if kind == "dead":
+            require(r["dead_candidates"] > 0, "route fig5 merged: dead links")
+        if kind == "fallback":
+            require(r["fallback"] > 0, "route fig5 merged: the fallback ran")
     return timed, cases
 
 
@@ -758,7 +897,7 @@ def check_decide(dev, ar, st, policy: str, label: str, iters: int, select,
     nonce = torch.arange(ar.f_id.shape[0], device=ar.f_id.device) % 5
     salted = ar.f_id ^ fmix32(nonce)
     before = ops.counts()["decide"]
-    err, decided, none = 0, 0, 0
+    err, decided, none, laws = 0, 0, 0, set()
     for t, sig, salt in cases:
         fid = salted if salt else ar.f_id
         k, c = launch.decide(t, fid, ar.f_pair, sig)
@@ -768,11 +907,13 @@ def check_decide(dev, ar, st, policy: str, label: str, iters: int, select,
                   int((c.long() - cp.long()).abs().max()))
         decided += int((kp >= 0).sum())
         none += int((kp < 0).sum())
+        laws |= set(row_laws(ar, ar.f_pair[kp >= 0], policy))
     require(err == 0, f"decide {label}: kernel equals plain (err {err})")
     require(ops.counts()["decide"] == before + len(cases),
             f"decide {label}: one launch a call")
     out = dict(shape=label, N=int(ar.f_id.shape[0]), cases=cases,
-               decided=decided, no_candidate=none, max_abs_err=err)
+               decided=decided, no_candidate=none, laws=len(laws),
+               max_abs_err=err)
     if iters:
         t, sig, _ = cases[0]
         out.update(**timings(
@@ -814,6 +955,31 @@ def decide_checks(dev, shapes) -> tuple:
                          20 if policy in ("lcmp", "ecmp") else 0, SelectParams(),
                          [(2, 1, False), (0, -1, False), (3, 3, True)])
         (timed if policy in ("lcmp", "ecmp") else cases).append(r)
+    cases.append(check_decide(dev, mixed_laws(ar, 8), st, "sweep",
+                              f"bulk sweep (a law per pair) N={b['F']} "
+                              f"K={b['K']} H={b['H']}", 0, SelectParams(),
+                              [(2, 1, False), (0, -1, False), (3, 3, True)]))
+    return timed, cases
+
+
+def sweep_decide_checks(dev, w: dict) -> tuple:
+    """``decide`` with a random law per pair over every flow of the merged
+    fig5 world: dead links with a degrade (timed) and the fallback, at the
+    failover's read (t = 0, ring step -1), a mid-run step and salted
+    keys. Returns (timed rows, other cases)."""
+    timed, cases = [], []
+    for i, kind in enumerate(("dead", "fallback")):
+        ar, st = world_state(dev, w, kind, seed=95 + i)
+        r = check_decide(dev, mixed_laws(ar, 3 + i), st, "sweep",
+                         f"fig5 merged {w['C']} cells, a law per pair, {kind} "
+                         f"N={w['arrs'].f_id.shape[0]} K={w['K']} H={w['H']}",
+                         200 if kind == "dead" else 0, w["cfg"].select,
+                         [(1500, 1499, False), (0, -1, False),
+                          (1500, 1500, True)])
+        (timed if kind == "dead" else cases).append(r)
+        require(r["decided"] > 0 and r["laws"] >= (
+            len(LAWS) if kind == "fallback" else 5),
+            f"decide fig5 merged {kind}: flows of each law decided")
     return timed, cases
 
 
@@ -945,6 +1111,17 @@ def phase_kernel_check(dev, shapes) -> dict:
     torch.cuda.empty_cache()
     decide_timed, decide_cases = decide_checks(dev, shapes)
     torch.cuda.empty_cache()
+    # the fig5 group's merged world: the tick over its C x L ports, and
+    # route and decide with a law per pair
+    merged = merged_shape(dev)
+    monitor.append(check_monitor(dev, merged["tables"],
+                                 f"fig5 merged N={merged['L']}", 200))
+    timed, cases = sweep_route_checks(dev, merged)
+    route, route_cases = route + timed, route_cases + cases
+    timed, cases = sweep_decide_checks(dev, merged)
+    decide_timed, decide_cases = decide_timed + timed, decide_cases + cases
+    del merged
+    torch.cuda.empty_cache()
     leg1, leg2 = lc.int8_leg_sizes(train_config().param_count(), TRAIN_PODS)
     quant, dequant = [], []
     for n, label, iters in ((leg1, f"train leg 1 N={leg1}", 3),
@@ -1004,6 +1181,8 @@ def expected_decides(cfg) -> int:
     from repro_torch.netsim import engine
     T = cfg.num_steps
     trips = {at // cfg.dt_us for _, at in cfg.fail_sched}
+    if cfg.fail_link >= 0:
+        trips.add(cfg.fail_at_us // cfg.dt_us)
     epochs = 0
     if engine.wants_redecide(cfg):
         epoch = max(cfg.redecide_period_us // cfg.dt_us, 1)
@@ -1068,19 +1247,202 @@ def phase_runs(dev) -> dict:
     return runs
 
 
+def agree(a, b) -> bool:
+    """Two card runs of one cell agree to the printed digits (4
+    significant digits of p50 and p99, the same completions): the card's
+    index_add_ sums in a varying order, which moves p99's seventh digit."""
+    return (abs(a.p50 - b.p50) <= 5e-4 * abs(b.p50)
+            and abs(a.p99 - b.p99) <= 5e-4 * abs(b.p99)
+            and a.completed == b.completed)
+
+
+def run_sweep_group(dev, group: str, runs: dict) -> dict:
+    """One group of ``SWEEPS`` through ``run_sweep`` on the card: one
+    ``monitor_tick`` and one ``route_arrivals`` launch a step for the
+    whole group, ``expected_decides`` ``decide`` launches, no standalone
+    entry and no plain version; each cell within the bands of its
+    reference number (``REFERENCE`` or ``SWEEP_REFERENCE``) and agreeing
+    with its sequential run to the printed digits. The sequential wall
+    time sums phase run's times where it ran the cell and one sequential
+    ``run_sweep`` of the other cells, in this call."""
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import engine
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import sweep
+    cells = sweep_cells(group)
+    specs = [pexp.ExpSpec(**kw) for _, kw, _ in cells]
+    _, cfg = sweep.group_config(specs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        rep = sweep.run_sweep(specs, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    decides = expected_decides(cfg)
+
+    rest = [i for i, (_, _, run) in enumerate(cells) if run is None]
+    seq_stats, rest_wall = {}, 0.0
+    if rest:
+        t0 = time.perf_counter()
+        seq = sweep.run_sweep([specs[i] for i in rest], sequential=True,
+                              device=dev)
+        torch.cuda.synchronize()
+        rest_wall = time.perf_counter() - t0
+        seq_stats = {i: r.stats for i, r in zip(rest, seq.results)}
+    seq_wall = rest_wall + sum(runs[run]["wall_s"] for _, _, run in cells if run)
+
+    rows = []
+    for i, ((name, kw, run), res) in enumerate(zip(cells, rep.results)):
+        st = res.stats
+        ref_nums = REFERENCE[run] if run else SWEEP_REFERENCE[name]
+        row = {"cell": name, "p50": st.p50, "p99": st.p99,
+               "completed": st.completed, "offered": st.offered,
+               "reference": ref_nums, "sequential": run or "sequential run",
+               "route_nonce_max": int(res.final.route_nonce.max())}
+        if run:
+            seq_st = SimpleNamespace(**{k: runs[run][k] for k in
+                                        ("p50", "p99", "completed")})
+        else:
+            seq_st = seq_stats[i]
+        row["sequential_p50_p99_completed"] = [seq_st.p50, seq_st.p99,
+                                               seq_st.completed]
+        row["agrees_with_sequential"] = agree(st, seq_st)
+        rows.append(row)
+    out = {"phase": "sweep", "group": group, "cells": len(cells),
+           "groups": rep.num_groups, "steps": cfg.num_steps,
+           "sweep_policies": list(cfg.sweep_policies), "wall_s": wall,
+           "sequential_wall_s": seq_wall,
+           "sequential_wall_of_cells_not_in_run_s": rest_wall,
+           "max_memory_allocated": peak, "launches": counts,
+           "expected_decide": decides, "plain_calls": plain.calls,
+           "per_cell": rows}
+    emit(out)
+    require(rep.num_groups == 1, f"sweep {group}: one static group")
+    require(counts["monitor_tick"] == cfg.num_steps
+            and counts["route_arrivals"] == cfg.num_steps,
+            f"sweep {group}: one monitor_tick and one route_arrivals launch a "
+            "step for the whole group")
+    require(counts["decide"] == decides,
+            f"sweep {group}: one decide launch per trip step and epoch")
+    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+            f"sweep {group}: the standalone entries are not on the path")
+    require(plain.calls == 0, f"sweep {group}: no plain version ran on the card")
+    redecides = engine.wants_redecide(cfg)
+    for (name, _, _), res, row in zip(cells, rep.results, rows):
+        st, (r50, r99, rdone, roffered) = res.stats, row["reference"]
+        require(np.isfinite(st.slowdown).all() and (st.slowdown >= 1).all()
+                and np.isfinite(res.util).all(), f"{name}: finite results")
+        require(st.offered == roffered, f"{name}: offered flows equal the "
+                "reference's")
+        require(within(st.p50, r50, P50_BAND), f"{name}: p50 in band")
+        require(within(st.p99, r99, P99_BAND), f"{name}: p99 in band")
+        require(abs(st.completed - rdone) <= COMPLETED_BAND * roffered,
+                f"{name}: completed in band")
+        require(row["agrees_with_sequential"], f"{name}: the batched cell "
+                "agrees with its sequential run to the printed digits")
+        moves = redecides and res.spec.policy in engine.REDECIDE_POLICIES
+        require((row["route_nonce_max"] > 0) == moves, f"{name}: only "
+                "re-deciding cells re-decide (the others keep nonce 0)")
+    if group == "fig5":
+        for load in {kw["load"] for _, kw, _ in cells}:
+            p99 = {kw["policy"]: row["p99"] for (_, kw, _), row in
+                   zip(cells, rows) if kw["load"] == load}
+            require(p99["lcmp"] < p99["ecmp"], f"fig5 load {load}: p99 lcmp "
+                    "< ecmp")
+    return out
+
+
+def offered_load_probe(dev, steps: int = 500, reps: int = 50) -> dict:
+    """Where the merged fig5 step's offered-load ``index_add_`` spends its
+    time: after ``steps`` steps, the step's own sum of every flow's H
+    contributions (the 0.0 ones of unrouted and finished flows and of
+    short paths' pad hops included, all sent to path 0's links and link
+    0) against the same sum of the nonzero ones alone, each timed over
+    ``reps`` calls with CUDA events. The two sums must agree (float
+    rounding aside: atomics add in a varying order)."""
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import fluid, sweep
+    g = sweep.build_group([pexp.ExpSpec(**kw) for kw in SWEEPS["fig5"]],
+                          device=dev)
+    step, st = fluid.make_step(g.arrs, g.cfg), g.state
+    for t in range(steps):
+        st = step(st, t)
+    pf = st.flow_path
+    links_f = g.arrs.path_links[torch.clamp_min(pf, 0)]
+    links_ok = ((links_f >= 0) & st.active[:, None]
+                & (pf >= 0)[:, None]).reshape(-1)
+    lidx = torch.clamp_min(links_f, 0).reshape(-1)
+    contrib = torch.where(links_ok, st.rate.repeat_interleave(
+        links_f.shape[1]), 0.0)
+    L = g.arrs.link_cap.shape[0]
+    out = {"phase": "offered_load_probe",
+           "spec": f"fig5 merged sweep ({len(g.specs)} cells), step {steps}",
+           "contributions": lidx.numel(), "nonzero": int(links_ok.sum()),
+           "most_on_one_link": int(torch.bincount(lidx, minlength=L).max()),
+           "most_nonzero_on_one_link": int(torch.bincount(
+               lidx[links_ok], minlength=L).max())}
+    sums = {}
+    for name, (i, v) in {"all": (lidx, contrib),
+                         "nonzero": (lidx[links_ok], contrib[links_ok])}.items():
+        acc = torch.zeros(L, device=dev)
+        for _ in range(5):
+            acc.index_add_(0, i, v)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(reps):
+            acc.index_add_(0, i, v)
+        t1.record()
+        torch.cuda.synchronize()
+        out[f"{name}_us"] = t0.elapsed_time(t1) / reps * 1e3
+        sums[name] = torch.zeros(L, device=dev).index_add_(0, i, v)
+    out["max_abs_diff"] = float((sums["all"] - sums["nonzero"]).abs().max())
+    emit(out)
+    require(torch.allclose(sums["all"], sums["nonzero"], rtol=1e-5, atol=0.0),
+            "offered_load_probe: the nonzero contributions give the step's sum")
+    return out
+
+
+def phase_sweep(dev, runs: dict) -> dict:
+    """Every group of ``SWEEPS`` (``run_sweep_group``), then where a step
+    of the merged fig5 world spends its time (``profile_steps``) and what
+    its offered-load sum costs (``offered_load_probe``)."""
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import sweep
+    groups = {g: run_sweep_group(dev, g, runs) for g in SWEEPS}
+    g = sweep.build_group([pexp.ExpSpec(**kw) for kw in SWEEPS["fig5"]],
+                          device=dev)
+    profile_steps(g.arrs, g.state, g.cfg, f"fig5 merged sweep ({len(g.specs)} "
+                  "cells), from step 300", phase="sweep_profile")
+    del g
+    offered_load_probe(dev)
+    return groups
+
+
 def phase_profile(dev, steps: int = 200) -> dict:
-    """Where a step's time goes, on testbed8 lcmp after 300 warm-up
+    """Where a step's time goes, on testbed8 lcmp (``profile_steps``)."""
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import fluid
+    _, table, flows, cfg = pexp.build_experiment(
+        pexp.ExpSpec(**TESTBED8, policy="lcmp"))
+    arrs, st = fluid.build(table, flows, cfg, device=dev)
+    return profile_steps(arrs, st, cfg, "testbed8 lcmp load 0.5, from step 300",
+                         steps)
+
+
+def profile_steps(arrs, st, cfg, label: str, steps: int = 200,
+                  phase: str = "profile") -> dict:
+    """Where a step's time goes in world ``arrs``/``st`` after 300 warm-up
     steps: the wall time of ``steps`` plain steps, then ``steps`` more
     under ``torch.profiler`` for the device-busy time, the idle share,
     kernels per step, the two fused kernels' device time and the kernels
     that take the most of it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.netsim import experiment as pexp
     from repro_torch.netsim import fluid
-    _, table, flows, cfg = pexp.build_experiment(
-        pexp.ExpSpec(**TESTBED8, policy="lcmp"))
-    arrs, st = fluid.build(table, flows, cfg, device=dev)
     step = fluid.make_step(arrs, cfg)
     for t in range(300):
         st = step(st, t)
@@ -1105,7 +1467,7 @@ def phase_profile(dev, steps: int = 200) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     own = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) / steps
            for k in ("monitor_tick", "route_arrivals")}
-    out = {"phase": "profile", "spec": "testbed8 lcmp load 0.5, from step 300",
+    out = {"phase": phase, "spec": label,
            "steps": steps, "wall_ms_per_step": wall / steps * 1e3,
            "wall_ms_per_step_profiled": wall_prof / steps * 1e3,
            "device_busy_ms_per_step": busy_us / steps / 1e3,
@@ -1157,14 +1519,55 @@ def device_vs_cpu(dev, kw: dict, label: str) -> dict:
     return out
 
 
+def sweep_device_vs_cpu(dev, policies=("lcmp", "ecmp", "redte")) -> dict:
+    """A 100 ms testbed8 load-0.5 group through ``run_sweep`` on the card
+    and on the CPU (plain versions): each cell routes the flows of the
+    first 500 steps alike and lands within the bands of the CPU's."""
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import sweep
+    specs = [pexp.ExpSpec(**dict(TESTBED8, duration_us=100_000, policy=p))
+             for p in policies]
+    res = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        rep = sweep.run_sweep(specs, device=d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        res.append((rep, time.perf_counter() - t0))
+    (g, wg), (c, wc) = res
+    cells = []
+    for p, a, b in zip(policies, g.results, c.results):
+        early = a.flows.arrival_us // 200 < 500
+        cells.append({"policy": p,
+                      "same_path_share": float((a.final.flow_path[early]
+                                                == b.final.flow_path[early]).mean()),
+                      "flows_first_500_steps": int(early.sum()),
+                      "gpu": [a.stats.p50, a.stats.p99, a.stats.completed],
+                      "cpu": [b.stats.p50, b.stats.p99, b.stats.completed]})
+    out = {"phase": "device_vs_cpu", "spec": "sweep of testbed8 load 0.5 "
+           f"{'/'.join(policies)} 100 ms", "gpu_wall_s": wg, "cpu_wall_s": wc,
+           "cells": cells}
+    emit(out)
+    for row, a, b in zip(cells, g.results, c.results):
+        label = f"device vs cpu sweep {row['policy']}"
+        require(row["same_path_share"] >= 0.99, f"{label}: same paths")
+        require(within(a.stats.p50, b.stats.p50, P50_BAND), f"{label}: p50")
+        require(within(a.stats.p99, b.stats.p99, P99_BAND), f"{label}: p99")
+        require(abs(a.stats.completed - b.stats.completed)
+                <= COMPLETED_BAND * a.stats.offered, f"{label}: completed")
+    return out
+
+
 def phase_device_vs_cpu(dev) -> list:
-    """testbed8 lcmp, and a schedule run: testbed8_failover lcmp with the
-    trip at 50 ms (step 250, active flows on the tripped link)."""
+    """testbed8 lcmp, a schedule run (testbed8_failover lcmp with the
+    trip at 50 ms: step 250, active flows on the tripped link) and a
+    sweep group."""
     return [device_vs_cpu(dev, dict(TESTBED8, policy="lcmp"),
                           "testbed8 lcmp load 0.5 100 ms"),
             device_vs_cpu(dev, dict(topology="testbed8_failover:fail_ms=50",
                                     load=0.3, policy="lcmp"),
-                          "testbed8_failover:fail_ms=50 lcmp load 0.3 100 ms")]
+                          "testbed8_failover:fail_ms=50 lcmp load 0.3 100 ms"),
+            sweep_device_vs_cpu(dev)]
 
 
 def adam_bound(cfg, t: int) -> float:
@@ -1433,14 +1836,17 @@ def phase_train_device_vs_cpu(dev) -> dict:
     return out
 
 
-def kernel_summary(checks: dict, runs: dict, train: dict) -> dict:
+def kernel_summary(checks: dict, runs: dict, train: dict,
+                   sweeps: dict) -> dict:
     """The ``kernels`` line: every TPU kernel, each at its main-path
     entry. The fluid pair's entries are the fused ``monitor_tick`` and
     ``route_arrivals`` at testbed8's shape (lcmp, the row with the most
     arrivals) and ``decide`` at wan2000's (lcmp, every flow, the
     failover's read), with their launches summed over the runs of
-    phase 4; the standalone ``cong_update`` and ``lcmp_decide`` entries,
-    which the main path does not launch, stand beside them."""
+    phase 4 and the groups of phase sweep; the standalone ``cong_update``
+    and ``lcmp_decide`` entries, which the main path does not launch,
+    stand beside them."""
+    runs = {**runs, **{f"sweep/{g}": r for g, r in sweeps.items()}}
     meta = {"monitor_tick": ("src/repro_torch/kernels/csrc/cong_update.cu",
                              "src/repro/kernels/cong_update.py:74", "cong_update"),
             "route_arrivals": ("src/repro_torch/kernels/csrc/lcmp_decide.cu",
@@ -1511,10 +1917,11 @@ def main() -> int:
     checks = phase_kernel_check(dev, main_path_shapes(dev))
     runs = phase_runs(dev)
     phase_profile(dev)
+    sweeps = phase_sweep(dev, runs)
     phase_device_vs_cpu(dev)
     train = phase_train(dev)
     phase_train_device_vs_cpu(dev)
-    emit(kernel_summary(checks, runs, train))
+    emit(kernel_summary(checks, runs, train, sweeps))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -35,6 +35,13 @@
 //   candidate is valid. Its callers are the failover at a trip step (all
 //   flows) and the re-decision epoch (salted keys).
 //
+// The law of a decision is RouteArgs.policy, or, when pair_policy is set (a
+// merged sweep world: netsim/engine.py::merge_cells), the code of the
+// decision's pair, read once per warp (law_of): one warp decides one
+// arrival, so the dispatch stays warp-uniform with the laws mixed across
+// warps, and each decision is its cell's own law, as the reference's
+// sweep-mode decide gathers it.
+//
 // choose is the one law dispatch of all three engine entries, bit for bit
 // the reference's decide._choice over a warp's <= 8 candidate lanes:
 //   lcmp, lcmp_r  the LCMP decision above (lcmp_choose);
@@ -227,6 +234,7 @@ struct RouteArgs {
   const int* link_deg_step;     // (L,) degrade onset step
   const float* link_deg_factor; // (L,)
   const int* redte_w;           // (NPAIR, K) split weights
+  const int* pair_policy;       // (NPAIR,) law code per pair, or null
   long long hist_len;
   int A, K, H, policy, alpha, beta, keep_num, cong_fallback, dt_us;
 };
@@ -254,6 +262,11 @@ struct Lane {
   float bneck;   // matchrdma: the least effective span capacity
 };
 
+// The law of a decision for pair `pair` (the same in every lane of a warp).
+__device__ __forceinline__ int law_of(const RouteArgs& a, int pair) {
+  return a.pair_policy != nullptr ? a.pair_policy[pair] : a.policy;
+}
+
 __device__ __forceinline__ bool reads_view(int policy) {
   return policy == POLICY_LCMP || policy == POLICY_LCMP_W ||
          policy == POLICY_LCMP_R || policy == POLICY_FATPATHS ||
@@ -261,9 +274,11 @@ __device__ __forceinline__ bool reads_view(int policy) {
 }
 
 // Lane `lane`'s candidate of pair `pair`: hop liveness, the view at ring
-// step sig_step, and for matchrdma the bottleneck at step t.
-__device__ __forceinline__ Lane candidate_lane(const RouteArgs& a, int pair,
-                                               int lane, int t, int sig_step) {
+// step sig_step when law `law` reads it, and for matchrdma the bottleneck
+// at step t.
+__device__ __forceinline__ Lane candidate_lane(const RouteArgs& a, int law,
+                                               int pair, int lane, int t,
+                                               int sig_step) {
   Lane l;
   l.cand = lane < a.K ? a.pair_cand[(long long)pair * a.K + lane] : -1;
   l.valid = l.cand >= 0;
@@ -274,7 +289,7 @@ __device__ __forceinline__ Lane candidate_lane(const RouteArgs& a, int pair,
 #pragma unroll
   for (int h = 0; h < H_MAX; ++h)
     link[h] = h < a.H ? a.path_links[(long long)l.cand * a.H + h] : -1;
-  const bool view = reads_view(a.policy);
+  const bool view = reads_view(law);
   const int ring = (int)a.hist_len;
   int cc = -2147483647 - 1;
 #pragma unroll
@@ -286,7 +301,7 @@ __device__ __forceinline__ Lane candidate_lane(const RouteArgs& a, int pair,
         const int slot = ((sig_step - sd) % ring + ring) % ring;   // floored
         cc = max(cc, a.hist_c[(long long)link[h] * a.hist_len + slot]);
       }
-      if (a.policy == POLICY_MATCHRDMA) {
+      if (law == POLICY_MATCHRDMA) {
         const float fac = t >= a.link_deg_step[link[h]] ? a.link_deg_factor[link[h]]
                                                         : 1.0f;
         l.bneck = fminf(l.bneck, __fmul_rn((float)a.link_cap_gbps[link[h]], fac));
@@ -331,15 +346,15 @@ __device__ __forceinline__ int weighted_hash(int w, int K, uint32_t fid) {
   return count;
 }
 
-// The law dispatch: the candidate slot the policy picks (-1 when none is
+// The law dispatch: the candidate slot law `law` picks (-1 when none is
 // valid), the same in every lane. Every lane of the warp calls it, with its
 // own candidate in l; the branch is the same for the whole warp.
-__device__ int choose(const RouteArgs& a, const Lane& l, int lane, int pair,
-                      uint32_t fid) {
+__device__ int choose(const RouteArgs& a, int law, const Lane& l, int lane,
+                      int pair, uint32_t fid) {
   const uint32_t vmask = __ballot_sync(FULL, l.valid);
   const int num_valid = __popc(vmask);
   const int capg = l.cand >= 0 ? a.path_cap_gbps[l.cand] : 0;
-  switch (a.policy) {
+  switch (law) {
     case POLICY_LCMP:
     case POLICY_LCMP_R:
     case POLICY_LCMP_W: {
@@ -350,7 +365,7 @@ __device__ int choose(const RouteArgs& a, const Lane& l, int lane, int pair,
       for (int i = 0; i < P_MAX; ++i)
         key[i] = __shfl_sync(FULL, cost * P_MAX + lane, i);
       const int mc = min8(l.valid ? l.cc : SCORE_MAX + 1);  // least valid C_cong
-      if (a.policy != POLICY_LCMP_W)
+      if (law != POLICY_LCMP_W)
         return lcmp_choose(key, num_valid, mc, fid, a.keep_num, a.cong_fallback);
       sort8(key);
       const int keep = max((num_valid + a.keep_num - 1) / a.keep_num, 1);
@@ -412,8 +427,9 @@ __global__ void __launch_bounds__(THREADS) route_arrivals_kernel(
   const int pair = a.f_pair[f];
   const uint32_t fid = (uint32_t)a.f_id[f];
 
-  const Lane l = candidate_lane(a, pair, lane, t, t);
-  const int kidx = choose(a, l, lane, pair, fid);
+  const int law = law_of(a, pair);
+  const Lane l = candidate_lane(a, law, pair, lane, t, t);
+  const int kidx = choose(a, law, l, lane, pair, fid);
   if (kidx < 0) return;                          // no valid candidate
   const int path = __shfl_sync(FULL, l.cand, kidx);
 
@@ -455,8 +471,9 @@ __global__ void __launch_bounds__(THREADS) decide_kernel(
   const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (i >= N) return;                            // the whole warp leaves
   const int pair = pairs[i];
-  const Lane l = candidate_lane(a, pair, lane, t, sig_step);
-  const int kidx = choose(a, l, lane, pair, (uint32_t)fids[i]);
+  const int law = law_of(a, pair);
+  const Lane l = candidate_lane(a, law, pair, lane, t, sig_step);
+  const int kidx = choose(a, law, l, lane, pair, (uint32_t)fids[i]);
   const int path = __shfl_sync(FULL, l.cand, max(kidx, 0));
   if (lane != 0) return;
   k_out[i] = kidx;

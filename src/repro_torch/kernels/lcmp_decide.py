@@ -12,7 +12,9 @@ design does about that. Three entries share its decision:
 - ``route_arrivals``: the fluid engine's whole arrival routing for one
   step (candidates, liveness, the delayed congestion view, the policy's
   law, the queue wait and RTT, and the eight per-flow fields written in
-  place) in one launch, for every law of ``POLICY_CODES``.
+  place) in one launch, for every law of ``POLICY_CODES``, or under
+  ``"sweep"`` with each arrival's law read from its pair's code
+  (``SimArrays.pair_policy``, a merged sweep world).
 - ``decide``: the failover's and the re-decision's decisions for N
   given (hash key, pair) and a ring step for the congestion view, one
   launch returning ``(k_idx, chosen)``.
@@ -104,7 +106,7 @@ class _RouteArgs(ctypes.Structure):
         "arrivals", "f_pair", "f_id", "f_size", "pair_cand", "path_links",
         "path_sig", "path_prop", "path_cap", "link_cap", "link_alive",
         "hist_c", "c_path", "path_cap_gbps", "path_len", "link_cap_gbps",
-        "link_deg_step", "link_deg_factor", "redte_w")]
+        "link_deg_step", "link_deg_factor", "redte_w", "pair_policy")]
         + [("hist_len", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
             "A", "K", "H", "policy", "alpha", "beta", "keep_num",
@@ -146,17 +148,20 @@ class RouteArrivals:
     the first time the launcher sees it (a tensor must not be resized
     while the launcher may see it again), and the kernel writes those
     fields IN PLACE. ``decide(t, fid, pair, sig_step)`` is one launch of
-    the ``decide`` entry.
+    the ``decide`` entry. Under ``policy="sweep"`` each decision takes
+    the law ``ar.pair_policy`` holds for its pair, checked once to be
+    one of ``sweep_policies``.
     """
 
     def __init__(self, ar, st, policy: str, select: SelectParams,
-                 dt_us: int):
+                 dt_us: int, sweep_policies: tuple = tuple(POLICY_CODES)):
         dev = ar.arrivals.device
         if dev.type != "cuda":
             raise ValueError(f"route_arrivals: unsupported device {dev}")
-        if policy not in POLICY_CODES:
+        if policy not in POLICY_CODES and policy != "sweep":
             raise ValueError(f"route_arrivals: the kernel routes by the laws "
-                             f"{tuple(POLICY_CODES)}, not {policy!r}")
+                             f"{tuple(POLICY_CODES)} or a sweep's, not "
+                             f"{policy!r}")
         T, A = ar.arrivals.shape
         F, (NPAIR, K), (NP, H) = (ar.f_pair.shape[0], ar.pair_cand.shape,
                                   ar.path_links.shape)
@@ -194,6 +199,23 @@ class RouteArrivals:
         _within(ar.f_pair, "f_pair", 0, NPAIR)
         _within(ar.pair_cand, "pair_cand", -1, NP)
         _within(ar.path_links, "path_links", -1, L)
+        pair_policy = 0
+        if policy == "sweep":
+            codes = ar.pair_policy
+            if codes is None or codes.device != dev or codes.dtype != \
+                    torch.int32 or tuple(codes.shape) != (NPAIR,) \
+                    or not codes.is_contiguous():
+                raise ValueError(
+                    f"route_arrivals: a sweep routes by per-pair law codes, "
+                    f"ar.pair_policy an int32 tensor of shape ({NPAIR},) on "
+                    f"{dev}, got {None if codes is None else codes.dtype}")
+            swept = {POLICY_CODES[p] for p in sweep_policies}
+            got = set(torch.unique(codes).tolist())
+            if not got <= swept:
+                raise ValueError(f"route_arrivals: pair_policy holds law codes "
+                                 f"{sorted(got - swept)} outside the swept "
+                                 f"{tuple(sweep_policies)}")
+            pair_policy = codes.data_ptr()
         self.args = _RouteArgs(
             ar.arrivals.data_ptr(), ar.f_pair.data_ptr(), ar.f_id.data_ptr(),
             ar.f_size.data_ptr(), ar.pair_cand.data_ptr(),
@@ -203,14 +225,15 @@ class RouteArrivals:
             st.hist_c.data_ptr(), st.c_path.data_ptr(),
             ar.path_cap_gbps.data_ptr(), ar.path_len.data_ptr(),
             ar.link_cap_gbps.data_ptr(), ar.link_deg_step.data_ptr(),
-            ar.link_deg_factor.data_ptr(), st.redte_w.data_ptr(), R, A, K, H,
-            POLICY_CODES[policy], select.alpha, select.beta, select.keep_num,
-            select.cong_fallback, dt_us)
+            ar.link_deg_factor.data_ptr(), st.redte_w.data_ptr(), pair_policy,
+            R, A, K, H, POLICY_CODES.get(policy, -1), select.alpha,
+            select.beta, select.keep_num, select.cong_fallback, dt_us)
         # the tensors whose pointers the struct holds stay alive with it
         self.keep = (ar.arrivals, ar.f_pair, ar.f_id, ar.f_size, ar.pair_cand,
                      ar.path_links, ar.path_sig_delay, ar.path_prop,
                      ar.path_cap, ar.link_cap, ar.path_cap_gbps, ar.path_len,
-                     ar.link_cap_gbps, ar.link_deg_step, ar.link_deg_factor)
+                     ar.link_cap_gbps, ar.link_deg_step, ar.link_deg_factor,
+                     ar.pair_policy)
         self.bound = (st.link_alive, st.hist_c, st.c_path, st.redte_w)
         self.f_pair, self.NPAIR = ar.f_pair, NPAIR
         self.T, self.F, self.L, self.dev_index = T, F, L, dev.index
@@ -298,10 +321,12 @@ class RouteArrivals:
 
 
 def route_arrivals(t: int, st, ar, policy: str,
-                   select: SelectParams = SelectParams(), dt_us: int = 200):
+                   select: SelectParams = SelectParams(), dt_us: int = 200,
+                   sweep_policies: tuple = tuple(POLICY_CODES)):
     """Route the flows arriving at step ``t`` (row ``t`` of
-    ``ar.arrivals``) by ``policy`` and return the state with their eight
-    per-flow fields written.
+    ``ar.arrivals``) by ``policy`` (under ``"sweep"``, each pair's law of
+    ``sweep_policies``) and return the state with their eight per-flow
+    fields written.
 
     On CUDA one launch writes the fields of ``st`` IN PLACE and returns
     ``st``; on the CPU the plain version returns a new state. Pads and
@@ -309,10 +334,11 @@ def route_arrivals(t: int, st, ar, policy: str,
     """
     dev = ar.arrivals.device
     if dev.type == "cpu":
-        return ref.route_arrivals_ref(t, st, ar, policy, select, dt_us)
+        return ref.route_arrivals_ref(t, st, ar, policy, select, dt_us,
+                                      sweep_policies)
     if dev.type != "cuda":
         raise ValueError(f"route_arrivals: unsupported device {dev}")
-    RouteArrivals(ar, st, policy, select, dt_us)(t, st)
+    RouteArrivals(ar, st, policy, select, dt_us, sweep_policies)(t, st)
     return st
 
 
@@ -321,7 +347,7 @@ route_arrivals.launches = 0
 
 def decide(t: int, fid: torch.Tensor, pair: torch.Tensor, st, ar,
            policy: str, select: SelectParams = SelectParams(),
-           sig_step=None):
+           sig_step=None, sweep_policies: tuple = tuple(POLICY_CODES)):
     """``(k_idx, chosen)`` of ``policy``'s law for N decisions (hash keys
     ``fid`` (N,) int64, pairs ``pair`` (N,) int32), the congestion view
     read at ring step ``sig_step`` (default ``t``): the plain version on
@@ -330,7 +356,8 @@ def decide(t: int, fid: torch.Tensor, pair: torch.Tensor, st, ar,
     dev = ar.pair_cand.device
     if dev.type == "cpu":
         sig = t if sig_step is None else sig_step
-        return ref.decide_ref(t, fid, pair, st, ar, policy, select, sig)
+        return ref.decide_ref(t, fid, pair, st, ar, policy, select, sig,
+                              sweep_policies)
     raise ValueError(f"decide: on {dev} a run's launcher decides "
                      f"(RouteArrivals.decide, as engine.StepLaunchers does)")
 

@@ -9,7 +9,9 @@ Besides the TPU kernels' own functions, this holds the plain versions of
 the fluid engine's fused phases, ``monitor_tick_ref`` and
 ``route_arrivals_ref``, and of the failover and re-decision decision,
 ``decide_ref``, with the candidate view and the policy-dispatched law
-(``law_choice``, the reference's ``engine.decide._choice``) they share.
+(``law_choice``, the reference's ``engine.decide._choice``, and
+``pair_law_choice``, its per-pair dispatch for a merged sweep world)
+they share.
 They take the engine's ``SimState`` and ``SimArrays`` by field name and
 use the ring width of ``hist_c``.
 """
@@ -154,34 +156,60 @@ def law_choice(policy: str, t: int, sig_step: int, fid: torch.Tensor,
                         valid)
 
 
+def pair_law_choice(policy: str, t: int, sig_step: int, fid: torch.Tensor,
+                    pair: torch.Tensor, cand: torch.Tensor, hop: torch.Tensor,
+                    valid: torch.Tensor, st, ar,
+                    select: SelectParams = SelectParams(),
+                    sweep_policies: tuple = LAWS) -> torch.Tensor:
+    """``law_choice`` of ``policy``, or under ``"sweep"`` of each row's own
+    law, ``ar.pair_policy[pair]`` (the law code of the pair's cell in a
+    merged sweep world): as the reference's sweep-mode decide, each law of
+    ``sweep_policies`` decides every row and each row keeps its own law's
+    choice (the laws are row-wise; a row whose code is not swept gets
+    -1). No host sync, so the card can capture it in a graph."""
+    if policy != "sweep":
+        return law_choice(policy, t, sig_step, fid, pair, cand, hop, valid,
+                          st, ar, select)
+    code = ar.pair_policy[pair]
+    k_idx = torch.full_like(code, -1)
+    for p in sweep_policies:
+        k_idx = torch.where(code == LAWS.index(p),
+                            law_choice(p, t, sig_step, fid, pair, cand, hop,
+                                       valid, st, ar, select), k_idx)
+    return k_idx
+
+
 def decide_ref(t: int, fid: torch.Tensor, pair: torch.Tensor, st, ar,
                policy: str, select: SelectParams = SelectParams(),
-               sig_step=None):
+               sig_step=None, sweep_policies: tuple = LAWS):
     """``netsim.engine.decide``'s plain version: ``(k_idx, chosen)``, the
     candidate slot and global path index of each of N decisions (hash
     keys ``fid`` (N,) int64, pairs ``pair`` (N,)), both (N,) int32 and -1
     where no candidate is valid. ``sig_step`` (default ``t``) is the step
-    whose ring slot the congestion view reads."""
+    whose ring slot the congestion view reads. ``policy`` is any of
+    ``LAWS``, or ``"sweep"`` for each pair's own law of
+    ``sweep_policies`` (``pair_law_choice``)."""
     cand, hop, valid = candidate_view(pair, st, ar)
-    k_idx = law_choice(policy, t, t if sig_step is None else sig_step, fid,
-                       pair, cand, hop, valid, st, ar, select)
+    k_idx = pair_law_choice(policy, t, t if sig_step is None else sig_step,
+                            fid, pair, cand, hop, valid, st, ar, select,
+                            sweep_policies)
     return k_idx, chosen_path(cand, k_idx)
 
 
 def route_arrivals_ref(t: int, st, ar, policy: str,
                        select: SelectParams = SelectParams(),
-                       dt_us: int = 200):
+                       dt_us: int = 200, sweep_policies: tuple = LAWS):
     """Route the flows arriving at step ``t`` (row ``t`` of
-    ``ar.arrivals``) with the plain law of ``policy`` (any of ``LAWS``).
-    Returns a new state with the eight per-flow fields of the routed
-    flows written; pads and flows with no valid candidate change
-    nothing."""
+    ``ar.arrivals``) with the plain law of ``policy`` (any of ``LAWS``, or
+    ``"sweep"`` for each pair's own law of ``sweep_policies``). Returns a new state with the
+    eight per-flow fields of the routed flows written; pads and flows
+    with no valid candidate change nothing."""
     idx = ar.arrivals[t]                        # (A,)
     fidx = torch.clamp_min(idx, 0)
     pair = ar.f_pair[fidx]
     cand, hop, valid = candidate_view(pair, st, ar)
-    k_idx = law_choice(policy, t, t, ar.f_id[fidx], pair, cand, hop, valid,
-                       st, ar, select)
+    k_idx = pair_law_choice(policy, t, t, ar.f_id[fidx], pair, cand, hop,
+                            valid, st, ar, select, sweep_policies)
     chosen = torch.where(idx >= 0, chosen_path(cand, k_idx), -1)  # (A,)
 
     # the engine's queue-wait sum, which its failover and re-decision

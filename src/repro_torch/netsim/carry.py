@@ -35,7 +35,8 @@ def _nested(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
 def from_reference(arrays: Dict[str, np.ndarray], state: Dict[str, np.ndarray],
                    device=devmod.DEFAULT) -> Tuple[SimArrays, SimState]:
     """Flat numpy dicts of the reference's arrays and state -> the port's
-    ``SimArrays`` and ``SimState`` on ``device``."""
+    ``SimArrays`` and ``SimState`` on ``device``. An optional array field
+    the dict lacks (the reference has no ``pair_policy``) stays None."""
     dev = devmod.resolve(device)
     tb = _nested(arrays, "tables")
     tables = SwitchTables(
@@ -46,7 +47,8 @@ def from_reference(arrays: Dict[str, np.ndarray], state: Dict[str, np.ndarray],
         high_water_level=int(np.asarray(tb["high_water_level"])))
     arr = SimArrays(tables=tables, **{
         f.name: _tensor(arrays[f.name], dev)
-        for f in dataclasses.fields(SimArrays) if f.name != "tables"})
+        for f in dataclasses.fields(SimArrays)
+        if f.name != "tables" and f.name in arrays})
     cg = _nested(state, "cong")
     cong = CongState(**{f.name: _tensor(cg[f.name], dev)
                         for f in dataclasses.fields(CongState)})

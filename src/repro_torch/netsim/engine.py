@@ -6,12 +6,19 @@ This holds everything the fluid engine runs: ``SimConfig``,
 schedules), ``attach_link_caps``, the signal plane (``monitor_tick``,
 ``path_cong_view``), the control plane (``ctrl_refresh``,
 ``ctrl_tick``), the policy-dispatched decision (``decide``, every law
-of ``POLICY_CODES`` but the sweep meta-policy) with its three callers
-(``_route_arrivals``, the failover ``_reroute_dead`` and the
-re-decision ``redecide_tick``), ``redte_tick`` and the four CC laws
-(``_cc_update``: dcqcn, dctcp, timely, hpcc). The packet engine, the
-sweep and the sanitizer raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item (``check_slice``).
+of ``POLICY_CODES`` and the ``sweep`` meta-policy) with its three
+callers (``_route_arrivals``, the failover ``_reroute_dead`` and the
+re-decision ``redecide_tick``), ``redte_tick``, the four CC laws
+(``_cc_update``: dcqcn, dctcp, timely, hpcc) and ``merge_cells``, which
+joins a sweep group's built cells into one world (``netsim.sweep``).
+The packet engine and the sanitizer raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item (``check_slice``).
+
+Under ``policy="sweep"`` each decision takes the law of its pair's cell,
+``SimArrays.pair_policy`` (one code per pair of a merged world, see
+``merge_cells``), where the reference dispatches on one
+``policy_code`` per vmapped cell: the cells of a merged world share no
+link, path, pair or flow, so each computes what it computes alone.
 
 On CUDA the step's decisions are hand-written CUDA kernels sharing one
 law dispatch (``kernels/csrc/lcmp_decide.cu``): ``monitor_tick``
@@ -84,9 +91,8 @@ def policy_code(policy: str) -> int:
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """The reference's ``SimConfig`` fields that the fluid engine reads
-    (``engine``, ``policy``'s ``sweep`` and ``checks`` only so
-    ``check_slice`` can refuse what is not ported), with the same
-    defaults."""
+    (``engine`` and ``checks`` only so ``check_slice`` can refuse what is
+    not ported), with the same defaults."""
     engine: str = "fluid"
     policy: str = "lcmp"
     cc: str = "dcqcn"
@@ -105,10 +111,16 @@ class SimConfig:
     select: SelectParams = SelectParams()
     pathq: PathQParams = PathQParams()
     congp: CongParams = CongParams()
+    # the legacy single-link trip, folded into the schedule at build()
+    fail_link: int = -1
+    fail_at_us: int = -1
     # ((link_idx, at_us), ...) hard trips; ((link_idx, at_us, factor), ...)
     # silent capacity loss
     fail_sched: tuple = ()
     degrade_sched: tuple = ()
+    # policy == "sweep" only: the laws the per-pair dispatch covers
+    # (netsim.sweep narrows it to the policies present in a group)
+    sweep_policies: tuple = POLICIES
     flowlet_gap_us: int = 0
     redecide_period_us: int = 0
     n_subflows: int = 1
@@ -120,7 +132,13 @@ class SimConfig:
 
     @property
     def has_failures(self) -> bool:
-        return len(self.fail_sched) > 0
+        return self.fail_link >= 0 or len(self.fail_sched) > 0
+
+    @property
+    def policies(self) -> tuple:
+        """The laws a run can apply: ``sweep_policies`` under the sweep,
+        else the one policy."""
+        return self.sweep_policies if self.policy == "sweep" else (self.policy,)
 
     @property
     def has_degrade(self) -> bool:
@@ -129,9 +147,9 @@ class SimConfig:
 
 def check_slice(cfg: SimConfig) -> None:
     """Raise ``NotImplementedError`` for any configuration the port does
-    not run yet (the packet engine, the sweep, the sanitizer), naming the
+    not run yet (the packet engine, the sanitizer), naming the
     ``ROADMAP.md`` item that will; ``ValueError`` for an unknown engine,
-    policy or CC law."""
+    policy (a swept one included) or CC law."""
     def todo(what: str, item: str):
         raise NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue A item {item}")
@@ -139,9 +157,10 @@ def check_slice(cfg: SimConfig) -> None:
         todo("the packet engine", "5")
     if cfg.engine != "fluid":
         raise ValueError(f"unknown engine {cfg.engine!r}; valid: {ENGINES}")
-    if cfg.policy == "sweep":
-        todo("the sweep meta-policy", "6")
-    policy_code(cfg.policy)
+    for p in cfg.policies:
+        policy_code(p)
+    if cfg.policy == "sweep" and not cfg.sweep_policies:
+        raise ValueError("the sweep meta-policy needs sweep_policies")
     if cfg.cc not in CC_LAWS:
         raise ValueError(f"unknown congestion control {cfg.cc!r}; valid: "
                          f"{CC_LAWS}")
@@ -205,6 +224,9 @@ class SimArrays:
     link_delay_us: torch.Tensor = None    # (L,) i32 one-way propagation
     path_sig_delay: torch.Tensor = None   # (NP, H) i32 signal delay, steps
     tables: object = None                 # SwitchTables
+    # (NPAIR,) i32 law code of each pair's cell: read only under
+    # policy == "sweep", set by merge_cells (None elsewhere)
+    pair_policy: torch.Tensor = None
 
 
 def _t(x, dtype, dev) -> torch.Tensor:
@@ -265,8 +287,11 @@ def build(table: PathTable, flows: FlowSet, cfg: SimConfig,
     slot = np.arange(len(srt)) - np.searchsorted(srt, srt, side="left")
     arrivals[srt, slot] = order
 
-    # failure / degradation schedules -> per-link step arrays
+    # failure / degradation schedules -> per-link step arrays (the legacy
+    # single-link trip folds into the same representation)
     fail_step = np.full(L, _NEVER, np.int32)
+    if cfg.fail_link >= 0:
+        fail_step[cfg.fail_link] = cfg.fail_at_us // cfg.dt_us
     for li, at_us in cfg.fail_sched:
         fail_step[li] = min(int(fail_step[li]), int(at_us) // cfg.dt_us)
     deg_step = np.full(L, _NEVER, np.int32)
@@ -290,8 +315,9 @@ def build(table: PathTable, flows: FlowSet, cfg: SimConfig,
         f_size=_t(flows.size_bytes, np.float32, dev),
         f_pair=_t(flows.pair_id, np.int32, dev),
         f_id=_t(np.asarray(flows.flow_id, np.uint32), np.int64, dev),
-        policy_code=torch.tensor(policy_code(cfg.policy), dtype=torch.int32,
-                                 device=dev),
+        policy_code=torch.tensor(policy_code(cfg.policy)
+                                 if cfg.policy != "sweep" else 0,
+                                 dtype=torch.int32, device=dev),
         link_fail_step=_t(fail_step, np.int32, dev),
         link_deg_step=_t(deg_step, np.int32, dev),
         link_deg_factor=_t(deg_factor, np.float32, dev),
@@ -299,6 +325,10 @@ def build(table: PathTable, flows: FlowSet, cfg: SimConfig,
         link_delay_us=_t(link_delay_us, np.int32, dev),
         path_sig_delay=_t(sig_delay, np.int32, dev),
         tables=tb,
+        # one cell built under the sweep takes law 0, as the reference's
+        # policy_code 0; merge_cells gives a group its cells' codes
+        pair_policy=(torch.zeros((NPAIR,), dtype=torch.int32, device=dev)
+                     if cfg.policy == "sweep" else None),
     )
     F = flows.num_flows
 
@@ -396,8 +426,9 @@ def redte_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
     """RedTE's periodic split-ratio re-optimization (``redte`` only):
     every ``redte_period_us`` each pair's weights become the headroom
     ``max(256 - util_q8, 1)`` of each candidate's first link, written
-    into ``st.redte_w`` in place."""
-    if cfg.policy == "redte":
+    into ``st.redte_w`` in place. Under the sweep every pair's weights
+    are kept when ``redte`` is swept; only redte cells read them."""
+    if "redte" in cfg.policies:
         if t % max(cfg.redte_period_us // cfg.dt_us, 1) == 0:
             util_q8 = torch.clamp(st.u_ewma * 256, 0, 255).to(torch.int32)
             first = ar.path_first[torch.clamp_min(ar.pair_cand, 0)]
@@ -412,17 +443,19 @@ def decide(t: int, fid, pair, st: SimState, ar: SimArrays, cfg: SimConfig,
     keys (N,) int64 and pairs (N,) int32. ``sig_step`` (default ``t``)
     is the step whose ``hist_c`` slot the congestion view reads. Returns
     ``(k_idx, chosen)``, both (N,) int32, -1 where no candidate is valid.
-    The plain version, for CPU tensors; on the card a run decides through
-    ``StepLaunchers.decide``."""
+    Under ``policy="sweep"`` each decision takes the law of its pair's
+    cell (``ar.pair_policy``). The plain version, for CPU tensors; on the
+    card a run decides through ``StepLaunchers.decide``."""
     return ops.decide(t, fid, pair, st, ar, cfg.policy, cfg.select,
-                      sig_step)
+                      sig_step, cfg.sweep_policies)
 
 
 def _route_arrivals(t: int, st: SimState, ar: SimArrays, cfg: SimConfig):
     """Decide paths for the batch of flows arriving this step. One
     ``kernels.route_arrivals`` launch on CUDA (the eight per-flow fields
     written in place)."""
-    return ops.route_arrivals(t, st, ar, cfg.policy, cfg.select, cfg.dt_us)
+    return ops.route_arrivals(t, st, ar, cfg.policy, cfg.select, cfg.dt_us,
+                              cfg.sweep_policies)
 
 
 def path_queue_wait(q_bytes: torch.Tensor, link_cap: torch.Tensor,
@@ -494,8 +527,10 @@ def _reroute_dead(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
 
 def wants_redecide(cfg: SimConfig) -> bool:
     """Whether the fluid engine's re-decision plane is armed: a positive
-    ``redecide_period_us`` and a policy that re-decides."""
-    return cfg.redecide_period_us > 0 and cfg.policy in REDECIDE_POLICIES
+    ``redecide_period_us`` and a policy that re-decides (under the sweep,
+    any swept one)."""
+    return cfg.redecide_period_us > 0 and any(
+        p in REDECIDE_POLICIES for p in cfg.policies)
 
 
 def redecide_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
@@ -504,11 +539,19 @@ def redecide_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
     ``t``: each opportunity bumps the flow's nonce and the decision
     hashes ``f_id ^ fmix32(nonce)``. A path change keeps the flow's CC
     rate state; only the route bookkeeping (path, RTT, route step, queue
-    wait) follows the new path."""
-    if cfg.policy not in REDECIDE_POLICIES:
+    wait) follows the new path. Under the sweep only the flows of
+    re-deciding cells may move; the others stay pinned, nonce 0."""
+    redecide = [p for p in cfg.policies if p in REDECIDE_POLICIES]
+    if not redecide:
         return st
     decide_fn = _decider(ar, cfg, decide_fn)
     move = st.active & (st.flow_path >= 0) & eligible & (t > st.route_step)
+    if cfg.policy == "sweep":
+        law = ar.pair_policy[ar.f_pair]
+        cell_ok = torch.zeros_like(move)
+        for p in redecide:
+            cell_ok |= law == policy_code(p)
+        move = move & cell_ok
     nonce = st.route_nonce + move.to(torch.int32)
     fid = ar.f_id ^ selmod.fmix32(nonce)
     k_idx, new_path = decide_fn(t, fid, ar.f_pair, st, t)
@@ -552,7 +595,8 @@ class StepLaunchers:
     def _router(self, st: SimState):
         if self.router is None or not self.router.bound_to(st):
             self.router = ops.RouteArrivals(self.ar, st, self.cfg.policy,
-                                            self.cfg.select, self.cfg.dt_us)
+                                            self.cfg.select, self.cfg.dt_us,
+                                            self.cfg.sweep_policies)
         return self.router
 
     def route(self, t: int, st: SimState) -> SimState:
@@ -573,6 +617,9 @@ def _cc_update(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
     active ones, as in the reference."""
     if cfg.cc not in CC_LAWS:
         raise ValueError(cfg.cc)
+    if st.hist_q.numel() >= 1 << 31:
+        raise ValueError(f"{st.hist_q.shape[0]} links x HIST={HIST} overflow "
+                         "the rings' int32 flat index")
     slot = (t - st.rtt_steps) % HIST
     # feedback only once the flow's first packets had a full RTT on its
     # current path
@@ -649,3 +696,119 @@ def _cc_update(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
         cc_target=torch.where(act, new_target, st.cc_target),
         cc_alpha=alpha, prev_delay=pdel,
         last_dec=torch.where(act, last_dec, st.last_dec))
+
+
+# ------------------------------------------------------ merged sweep worlds
+# SimArrays fields by what their leading axis runs over, and the index
+# fields by what they index (merge_cells offsets those)
+_LINK_ARRAYS = ("link_cap", "link_cap_gbps", "link_fail_step", "link_deg_step",
+                "link_deg_factor", "link_delay_us")
+_PATH_ARRAYS = ("path_prop", "path_cap", "path_cap_gbps", "path_len",
+                "path_sig_delay")
+_FLOW_ARRAYS = ("f_arr_us", "f_size", "f_id")
+_INDEX_ARRAYS = {"path_links": "link0", "path_first": "link0",
+                 "pair_cand": "path0", "f_pair": "pair0"}
+# SimState fields with a leading flow axis; c_path runs over paths,
+# redte_w over pairs, every other field (and CongState) over links
+_STATE_FLOW_FIELDS = ("flow_path", "remaining", "rate", "active", "done",
+                     "fct_us", "extra_wait", "rtt_steps", "route_step",
+                     "route_nonce", "last_dec", "cc_alpha", "cc_target",
+                     "prev_delay")
+
+
+@dataclasses.dataclass(frozen=True)
+class CellSlice:
+    """Where one cell sits in a merged world: its first link, path, pair
+    and flow, and how many of each it has."""
+    link0: int
+    L: int
+    path0: int
+    NP: int
+    pair0: int
+    NPAIR: int
+    flow0: int
+    F: int
+
+    def rows(self, axis: str) -> slice:
+        first, n = {"links": (self.link0, self.L), "paths": (self.path0, self.NP),
+                    "pairs": (self.pair0, self.NPAIR),
+                    "flows": (self.flow0, self.F)}[axis]
+        return slice(first, first + n)
+
+
+def _shift(x: torch.Tensor, off: int) -> torch.Tensor:
+    """Index table ``x`` moved by ``off``; -1 pads stay -1."""
+    return torch.where(x >= 0, x + off, x) if off else x
+
+
+def _state_axis(name: str) -> str:
+    return ("flows" if name in _STATE_FLOW_FIELDS
+            else {"c_path": "paths", "redte_w": "pairs"}.get(name, "links"))
+
+
+def merge_cells(built):
+    """One block-diagonal world from a sweep group's C built cells
+    ``[(SimArrays, SimState), ...]`` (one table and configuration, each
+    cell built with its own policy and traffic): cell c's links, paths,
+    pairs and flows follow the earlier cells' (offset c·L, c·NP, c·NPAIR
+    and the earlier cells' flow count), the index tables are moved by
+    those offsets, a step's arrival row is the cells' rows side by side
+    and ``pair_policy`` holds each pair's cell's law code. The cells
+    share no link, so every link sum, queue and decision of a cell is
+    what the cell computes alone. Returns ``(SimArrays, SimState,
+    [CellSlice, ...])``."""
+    ar0 = built[0][0]
+    L, NP, NPAIR = (ar0.link_cap.shape[0], ar0.path_links.shape[0],
+                    ar0.pair_cand.shape[0])
+    slices, flow0 = [], 0
+    for c, (ar, _) in enumerate(built):
+        if (ar.link_cap.shape[0], ar.path_links.shape[0],
+                ar.pair_cand.shape[0]) != (L, NP, NPAIR):
+            raise ValueError("merge_cells: the cells must share one world")
+        F = ar.f_pair.shape[0]
+        slices.append(CellSlice(c * L, L, c * NP, NP, c * NPAIR, NPAIR,
+                                flow0, F))
+        flow0 += F
+
+    arrs = [a for a, _ in built]
+    states = [s for _, s in built]
+
+    def cat(get, items) -> torch.Tensor:
+        return torch.cat([get(x, sl) for x, sl in zip(items, slices)])
+
+    fields = {n: cat(lambda a, sl, n=n: getattr(a, n), arrs)
+              for n in _LINK_ARRAYS + _PATH_ARRAYS + _FLOW_ARRAYS}
+    fields.update({n: cat(lambda a, sl, n=n, o=o: _shift(getattr(a, n),
+                                                         getattr(sl, o)), arrs)
+                   for n, o in _INDEX_ARRAYS.items()})
+    fields["arrivals"] = torch.cat([_shift(a.arrivals, sl.flow0)
+                                    for a, sl in zip(arrs, slices)], dim=1)
+    fields["pair_policy"] = cat(lambda a, sl: torch.full(
+        (NPAIR,), int(a.policy_code), dtype=torch.int32,
+        device=a.pair_cand.device), arrs)
+    fields["tables"] = dataclasses.replace(ar0.tables, trend_thresh=cat(
+        lambda a, sl: a.tables.trend_thresh, arrs))
+    arr = dataclasses.replace(ar0, policy_code=torch.zeros_like(ar0.policy_code),
+                              **fields)
+
+    cong = CongState(**{f.name: cat(lambda s, sl, n=f.name: getattr(s.cong, n),
+                                    states)
+                        for f in dataclasses.fields(CongState)})
+    state = SimState(cong=cong, **{
+        f.name: cat(lambda s, sl, n=f.name: _shift(getattr(s, n), sl.path0)
+                    if n == "flow_path" else getattr(s, n), states)
+        for f in dataclasses.fields(SimState) if f.name != "cong"})
+    return arr, state, slices
+
+
+def slice_cell(st: SimState, sl: CellSlice) -> SimState:
+    """Cell ``sl``'s own state out of a merged world's state (views; its
+    ``flow_path`` moved back to the cell's path indices)."""
+    cong = CongState(**{f.name: getattr(st.cong, f.name)[sl.rows("links")]
+                        for f in dataclasses.fields(CongState)})
+    out = {}
+    for f in dataclasses.fields(SimState):
+        if f.name != "cong":
+            v = getattr(st, f.name)[sl.rows(_state_axis(f.name))]
+            out[f.name] = _shift(v, -sl.path0) if f.name == "flow_path" else v
+    return SimState(cong=cong, **out)

@@ -3,12 +3,13 @@ Counterpart of ``repro/netsim/experiment.py`` (``ExpSpec``,
 ``build_world``, ``make_flows``, ``spec_to_cfg``, ``run_experiment``).
 
 ``run_experiment(spec)`` runs on the GPU; pass ``device="cpu"`` to run
-the same path on the CPU with the kernels' plain versions. Every policy
-but the sweep, every CC law, the scenarios' fail and degrade schedules,
+the same path on the CPU with the kernels' plain versions. Every policy,
+every CC law, the scenarios' fail and degrade schedules,
 ``ctrl_period_us``, ``sig_delay_scale``, ``redecide_period_us``,
-``n_subflows`` and ``load_sched`` run; the packet engine, the sweep, the
-training co-simulation and ``checks`` raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+``n_subflows`` and ``load_sched`` run; a grid of specs runs batched
+through ``netsim.sweep.run_sweep``. The packet engine, the training
+co-simulation and ``checks`` raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -71,8 +72,9 @@ AXES_DYNAMIC = (
 AXES_EXEMPT = {
     "topology": "selects the world built by build_world, not a"
                 " configuration field",
-    "policy": "read by spec_to_cfg; the sweep that would make it a"
-              " per-cell dynamic code is a later slice",
+    "policy": "the per-cell dynamic law code of the sweep"
+              " (SimArrays.pair_policy); the spec_to_cfg read is overridden"
+              " by static_key's policy='sweep' replace",
 }
 
 

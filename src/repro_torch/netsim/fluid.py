@@ -25,7 +25,11 @@ versions. The reference scans ``make_step`` under ``jax.jit``; here
 ``run`` calls the step once per ``dt`` from Python. The step mutates
 the state's rings, registers, ``link_alive``, ``c_path`` and
 ``redte_w`` (on the card also ``c_cong`` and the routed flows' fields)
-in place and returns the new state.
+in place and returns the new state. Under the ``sweep`` meta-policy
+(a merged group of ``netsim.sweep``) the same step runs every cell: each
+decision takes its pair's law, the re-decision epoch is armed when a
+swept policy re-decides and moves only its cells' flows, and RedTE's
+weights are kept when ``redte`` is swept.
 """
 from __future__ import annotations
 

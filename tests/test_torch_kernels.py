@@ -501,3 +501,97 @@ def test_cuda_fused_launchers_check_inputs(cuda, cs):
         tick(torch.zeros(4, device=cuda), 2000, 0)
     with pytest.raises(ValueError, match="overflows int32"):
         ops.MonitorTick(cong, cc, hist, tb, CongParams(), 1 << 31)
+
+
+# ------------------------------------------ a law per pair: the sweep (cuda)
+@pytest.fixture(scope="module")
+def merged(cs):
+    """The merged world of chip_smoke's fig5 group (15 cells), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return cs.merged_shape(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["live", "dead", "cut", "fallback"])
+def test_cuda_route_arrivals_a_law_per_pair_matches_plain(cuda, cs, merged,
+                                                          kind):
+    ar, st = cs.world_state(cuda, merged, kind, seed=11)
+    ar = cs.mixed_laws(ar, 2)
+    rows = cs.check_rows(ar.arrivals.cpu().numpy(),
+                         int(ar.path_sig_delay.max()))
+    rows = sorted(set(rows) | {cs.stranded_row(ar, st)} - {-1})
+    r = cs.check_route(cuda, ar, st, "sweep", f"fig5 merged {kind}", 0,
+                       merged["cfg"].select, merged["cfg"].dt_us, rows)
+    assert r["max_abs_err"] == 0
+    assert (r["routed"] == 0) == (kind == "cut")
+    assert kind == "cut" or r["laws"] >= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dead", "fallback"])
+def test_cuda_decide_a_law_per_pair_matches_plain(cuda, cs, merged, kind):
+    ar, st = cs.world_state(cuda, merged, kind, seed=12)
+    r = cs.check_decide(cuda, cs.mixed_laws(ar, 4), st, "sweep",
+                        f"fig5 merged {kind}", 0, merged["cfg"].select,
+                        [(0, -1, False), (900, 899, False), (900, 900, True)])
+    assert r["max_abs_err"] == 0 and r["laws"] >= 5
+
+
+@pytest.mark.cuda
+def test_cuda_a_law_per_pair_bulk_matches_plain(cuda, cs):
+    from repro_torch.core.select import SelectParams
+    ar, st = cs.bulk_route_world(cuda)
+    ar = cs.mixed_laws(ar, 6)
+    r = cs.check_route(cuda, ar, st, "sweep", "bulk sweep", 0, SelectParams(),
+                       200, [0, 1, 2, 3])
+    assert r["max_abs_err"] == 0 and r["laws"] == len(LAWS)
+    r = cs.check_decide(cuda, ar, st, "sweep", "bulk sweep", 0, SelectParams(),
+                        [(2, 1, False), (0, -1, False), (3, 3, True)])
+    assert r["max_abs_err"] == 0 and r["laws"] == len(LAWS)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_launcher_checks_its_laws(cuda, cs, merged):
+    ar = cs.mixed_laws(merged["arrs"], 1)
+    with pytest.raises(ValueError, match="outside the swept"):
+        ops.RouteArrivals(ar, merged["state"], "sweep", SelectParams(), 200,
+                          ("lcmp", "ecmp"))
+    bad = dataclasses.replace(ar, pair_policy=ar.pair_policy.long())
+    with pytest.raises(ValueError, match="per-pair law codes"):
+        ops.RouteArrivals(bad, merged["state"], "sweep", SelectParams(), 200)
+
+
+@pytest.mark.cuda
+def test_cuda_merged_fig5_steps_equal_the_cpu(cuda, cs):
+    # 300 steps of the merged fig5 group: one launch of each fused kernel
+    # a step for all 15 cells, and the state the CPU's plain steps reach
+    # (integers exact, floats within 1e-5 of the field's largest value:
+    # the card sums the link loads in another order)
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import fluid, sweep
+    specs = [pexp.ExpSpec(**kw) for kw in cs.SWEEPS["fig5"]]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        g = sweep.build_group(specs, device=dev)
+        step = fluid.make_step(g.arrs, g.cfg)
+        st = g.state
+        before = ops.counts()
+        for t in range(300):
+            st = step(st, t)
+        after = ops.counts()
+        want = 300 if dev.type == "cuda" else 0
+        assert after["monitor_tick"] - before["monitor_tick"] == want
+        assert after["route_arrivals"] - before["route_arrivals"] == want
+        out[dev.type] = {f.name: getattr(st, f.name).cpu()
+                         for f in dataclasses.fields(st) if f.name != "cong"}
+        out[dev.type].update({f"cong.{f.name}": getattr(st.cong, f.name).cpu()
+                              for f in dataclasses.fields(st.cong)})
+    assert bool(out["cpu"]["active"].any())
+    for n, g in out["cuda"].items():
+        c = out["cpu"][n]
+        if g.is_floating_point():
+            torch.testing.assert_close(g, c, rtol=1e-5,
+                                       atol=1e-5 * float(c.abs().max()), msg=n)
+        else:
+            assert torch.equal(g, c), n
