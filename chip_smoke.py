@@ -31,10 +31,19 @@ the script exits non-zero and prints no result line. Phases:
    ``monitor_tick`` and one ``route_arrivals`` launch a step, one
    ``decide`` launch per trip step and re-decision epoch, no standalone
    entry and no plain version; the reference's ``ORDERINGS`` must hold;
-5. profile: where a testbed8 lcmp step's time goes (torch.profiler):
-   wall and device-busy time per step, idle share, kernels per step, the
-   two fused kernels' device time;
-6. sweep: each group of ``SWEEPS`` (fig5's whole 15-cell grid, the
+5. packet: every run of ``PACKET_RUNS`` (the packet engine on
+   fidelity_bench's testbed8 cell, the full-size wan2000, the failover
+   with go-back-N, fig_multipath's packet rows with the flowlet plane
+   armed) the same way against ``PACKET_REFERENCE``: one
+   ``monitor_tick`` and one ``route_arrivals`` launch a slot, one
+   ``decide`` per trip step and per slot while the flowlet plane is
+   armed; hop queues non-negative and inside the buffer;
+   ``PACKET_ORDERINGS`` must hold;
+6. profile: where a testbed8 lcmp fluid step's and a packet slot's time
+   goes (torch.profiler): wall and device-busy time per step, idle
+   share, kernels per step, the two fused kernels' and ``index_add_``'s
+   device time;
+7. sweep: each group of ``SWEEPS`` (fig5's whole 15-cell grid, the
    wan2000 pair, the failover pair, the re-decision rows) through
    ``run_sweep`` as one merged world: one ``monitor_tick`` and one
    ``route_arrivals`` launch a step for the whole group, ``decide`` per
@@ -42,17 +51,27 @@ the script exits non-zero and prints no result line. Phases:
    reference number within the bands and against its sequential run to
    the printed digits; the batched wall time against the cells'
    sequential sum, peak memory; then the profile of a merged fig5 step;
-7. device_vs_cpu: testbed8 lcmp, testbed8_failover lcmp (a trip at
-   50 ms) and a 3-cell sweep group run on the card and on the CPU (plain
-   versions) must route the same flows the same way;
-8. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
+8. packet_sweep: fidelity_bench's grid (2 scenarios x 3 policies x both
+   engines, 12 cells in 4 groups) through one ``run_sweep`` at its
+   default and quick scales: the launch counts per group, each cell
+   against its reference number (``PACKET_REFERENCE``,
+   ``FIDELITY_REFERENCE``) and the cells phase packet ran alone against
+   those runs; the log-space Pearson r of packet against fluid against
+   the reference's (the paper's 0.95 bar is reached at the
+   quick scale only, as in the reference); LCMP below ECMP on testbed8
+   under both engines;
+9. device_vs_cpu: testbed8 lcmp, testbed8_failover lcmp (a trip at
+   50 ms), a 3-cell sweep group, and the packet engine's testbed8 lcmp
+   and failover runs on the card and on the CPU (plain versions) must
+   route the same flows the same way;
+10. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
    cut to 4 layers, one 4096-token sequence per pod, 2 pods on the card):
    3 steps with the int8 wire, then 1 f32-wire step from the state after
    step 2; the int8 gradient against the exact pod mean block by block,
    the route binding and wire bytes, the qsr launches, the two paths'
    parameters against AdamW's bound; time split, tokens/s, peak memory;
-9. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card and
-   on the CPU from the same weights and batch;
+11. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
+   and on the CPU from the same weights and batch;
 then the ``kernels`` summary line and the result line. Phase 3 also
 holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
 for bit, at 1024, 2^16 and 2^24 elements and at the train phase's two
@@ -180,6 +199,80 @@ ORDERINGS = [("testbed8/lcmp", "testbed8/ecmp", "p99"),
              ("wan2000/lcmp", "wan2000/ecmp", "p99"),
              ("failover/lcmp", "failover/ecmp", "p99"),
              ("wan2000_deg/lcmp", "wan2000_deg/fatpaths", "p99")]
+# phase packet: the packet engine (netsim/packet.py) through run_experiment,
+# 400 ms of arrivals each: fidelity_bench's testbed8 cell
+# (benchmarks/figures.py fidelity_bench), the full-size wan2000 run, the
+# failover (go-back-N at the trip) and fig_multipath's packet rows, which
+# arm both re-decision knobs (benchmarks/figures.py fig_multipath) so that
+# the packet engine's flowlet plane runs
+PACKET_TESTBED8 = dict(topology="testbed8", load=0.3, seed=1,
+                       duration_us=400_000, engine="packet")
+FLOWLET = dict(flowlet_gap_us=1000, redecide_period_us=10_000)
+PACKET_RUNS = {
+    "packet/testbed8/lcmp": dict(PACKET_TESTBED8, policy="lcmp"),
+    "packet/testbed8/ecmp": dict(PACKET_TESTBED8, policy="ecmp"),
+    "packet/wan2000/lcmp": dict(WAN2000, engine="packet", policy="lcmp"),
+    "packet/wan2000/ecmp": dict(WAN2000, engine="packet", policy="ecmp"),
+    "packet/failover/lcmp": dict(FAILOVER, engine="packet", policy="lcmp"),
+    "packet/staleness/fatpaths": dict(STALENESS, engine="packet",
+                                      policy="fatpaths", **FLOWLET),
+    "packet/staleness/amp": dict(STALENESS, engine="packet", policy="amp",
+                                 n_subflows=4),
+}
+# the JAX package's results on the same specs (p50, p99, completed,
+# offered), computed on the CPU and pinned by
+# tests/test_torch_packet_reference.py
+PACKET_REFERENCE = {"packet/testbed8/lcmp": (1.367, 8.185, 1918, 1918),
+                    "packet/testbed8/ecmp": (5.893, 42.25, 1918, 1918),
+                    "packet/wan2000/lcmp": (1.013, 2.438, 16744, 16745),
+                    "packet/wan2000/ecmp": (1.118, 6.251, 16743, 16745),
+                    "packet/failover/lcmp": (4.334, 15.60, 1869, 1870),
+                    "packet/staleness/fatpaths": (5.991, 58.38, 2578, 2578),
+                    "packet/staleness/amp": (41.74, 43.21, 2578, 2578)}
+PACKET_ORDERINGS = [("packet/testbed8/lcmp", "packet/testbed8/ecmp", "p50"),
+                    ("packet/testbed8/lcmp", "packet/testbed8/ecmp", "p99"),
+                    ("packet/wan2000/lcmp", "packet/wan2000/ecmp", "p50"),
+                    ("packet/wan2000/lcmp", "packet/wan2000/ecmp", "p99")]
+# phase packet_sweep: fidelity_bench's whole grid (benchmarks/figures.py
+# fidelity_bench): 2 scenarios x 3 policies x both engines, seed 1, at its
+# default scale (400 ms, the remote degrade at 80 ms) and at its quick
+# scale (300 ms, at 60 ms), where the reference reaches the paper's bar;
+# run_sweep makes one group per scenario and engine
+FIDELITY_DURATION = {"fidelity": 400_000, "fidelity_quick": 300_000}
+FIDELITY_LOADS = {"testbed8": 0.3, "staleness": 0.4}
+FIDELITY_POLICIES = ("ecmp", "ucmp", "lcmp")
+# the JAX package's run_sweep on the grids' cells that no run of
+# PACKET_RUNS covers (p50, p99, completed, offered), pinned by
+# tests/test_torch_fidelity_reference.py, with each grid's log-space Pearson
+# r of packet against fluid over the (cell, p50/p99) points
+FIDELITY_REFERENCE = {
+    "fidelity/testbed8/ecmp/fluid": (5.988, 41.97, 1917, 1918),
+    "fidelity/testbed8/ucmp/fluid": (20.93, 41.90, 1918, 1918),
+    "fidelity/testbed8/ucmp/packet": (4.372, 41.86, 1918, 1918),
+    "fidelity/testbed8/lcmp/fluid": (4.312, 15.06, 1917, 1918),
+    "fidelity/staleness/ecmp/fluid": (6.377, 78.23, 2578, 2578),
+    "fidelity/staleness/ecmp/packet": (5.991, 58.38, 2578, 2578),
+    "fidelity/staleness/ucmp/fluid": (42.53, 64.34, 2574, 2578),
+    "fidelity/staleness/ucmp/packet": (41.84, 99.33, 2578, 2578),
+    "fidelity/staleness/lcmp/fluid": (6.122, 43.41, 2576, 2578),
+    "fidelity/staleness/lcmp/packet": (3.246, 12.26, 2578, 2578),
+    "fidelity_quick/testbed8/ecmp/fluid": (4.352, 41.93, 1422, 1422),
+    "fidelity_quick/testbed8/ecmp/packet": (4.351, 42.09, 1422, 1422),
+    "fidelity_quick/testbed8/ucmp/fluid": (4.600, 42.29, 1422, 1422),
+    "fidelity_quick/testbed8/ucmp/packet": (4.355, 41.91, 1422, 1422),
+    "fidelity_quick/testbed8/lcmp/fluid": (1.424, 7.282, 1422, 1422),
+    "fidelity_quick/testbed8/lcmp/packet": (1.031, 4.391, 1422, 1422),
+    "fidelity_quick/staleness/ecmp/fluid": (6.612, 42.30, 1917, 1918),
+    "fidelity_quick/staleness/ecmp/packet": (6.008, 42.38, 1917, 1918),
+    "fidelity_quick/staleness/ucmp/fluid": (41.84, 64.34, 1910, 1918),
+    "fidelity_quick/staleness/ucmp/packet": (41.83, 78.73, 1918, 1918),
+    "fidelity_quick/staleness/lcmp/fluid": (6.106, 25.95, 1918, 1918),
+    "fidelity_quick/staleness/lcmp/packet": (1.661, 13.04, 1917, 1918)}
+FIDELITY_PEARSON = {"fidelity": 0.8983, "fidelity_quick": 0.9631}
+# r moves with the 24 numbers it correlates, each held to its band; the
+# paper's testbed-vs-NS-3 bar, which the reference reaches at the quick
+# scale only
+PEARSON_BAND, PAPER_PEARSON = 0.02, 0.95
 # every law of the port's route and decide entries (engine.POLICY_CODES
 # but the sweep), and the laws that read the delayed congestion view
 LAWS = ("lcmp", "lcmp_w", "ecmp", "ucmp", "wcmp", "redte", "fatpaths", "amp",
@@ -213,7 +306,14 @@ FAR_SHARE = 0.10
 QSR_BYTES = {"qsr_int8": 9, "qsr_dequant": 5}
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also holds the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -241,6 +341,31 @@ def sweep_cells(group: str) -> list:
                     if pexp.ExpSpec(**rk) == pexp.ExpSpec(**kw)), None)
         out.append((name, kw, run))
     return out
+
+
+def fidelity_cells(grid: str = "fidelity") -> list:
+    """``(name, ExpSpec fields, run)`` of each cell of a fidelity grid
+    (``FIDELITY_DURATION``), in fidelity_bench's order: its name and the
+    run of ``PACKET_RUNS`` on the same spec, or None."""
+    from repro_torch.netsim import experiment as pexp
+    dur = FIDELITY_DURATION[grid]
+    out = []
+    for scen, load in FIDELITY_LOADS.items():
+        top = (scen if scen == "testbed8"
+               else f"{scen}:deg_ms={max(dur // 5000, 50)}")
+        for pol in FIDELITY_POLICIES:
+            for eng in ("fluid", "packet"):
+                kw = dict(topology=top, load=load, policy=pol, engine=eng,
+                          duration_us=dur, seed=1)
+                run = next((r for r, rk in PACKET_RUNS.items()
+                            if pexp.ExpSpec(**rk) == pexp.ExpSpec(**kw)), None)
+                out.append((f"{grid}/{scen}/{pol}/{eng}", kw, run))
+    return out
+
+
+def log_pearson(fluid: list, packet: list) -> float:
+    """fidelity_bench's cross-engine correlation: Pearson r of the logs."""
+    return float(np.corrcoef(np.log(fluid), np.log(packet))[0, 1])
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1176,8 +1301,9 @@ class PlainCalls:
 
 
 def expected_decides(cfg) -> int:
-    """``decide`` launches a run makes: one per trip step, one per
-    re-decision epoch."""
+    """``decide`` launches a run makes: one per trip step, and while the
+    re-decision plane is armed one per epoch (fluid) or one per slot
+    (packet: flowlet eligibility is checked every slot)."""
     from repro_torch.netsim import engine
     T = cfg.num_steps
     trips = {at // cfg.dt_us for _, at in cfg.fail_sched}
@@ -1185,15 +1311,20 @@ def expected_decides(cfg) -> int:
         trips.add(cfg.fail_at_us // cfg.dt_us)
     epochs = 0
     if engine.wants_redecide(cfg):
-        epoch = max(cfg.redecide_period_us // cfg.dt_us, 1)
+        epoch = (1 if cfg.engine == "packet"
+                 else max(cfg.redecide_period_us // cfg.dt_us, 1))
         epochs = -(-T // epoch)
     return len({s for s in trips if 0 <= s < T}) + epochs
 
 
 def run_main_path(dev, name: str) -> dict:
+    """One run of ``RUNS`` or ``PACKET_RUNS`` through ``run_experiment``
+    on the card, held to its reference number and its launch counts."""
     from repro_torch.kernels import ops
+    from repro_torch.netsim import engine
     from repro_torch.netsim import experiment as pexp
-    spec = pexp.ExpSpec(**RUNS[name])
+    spec = pexp.ExpSpec(**{**RUNS, **PACKET_RUNS}[name])
+    reference = {**REFERENCE, **PACKET_REFERENCE}[name]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
@@ -1205,14 +1336,16 @@ def run_main_path(dev, name: str) -> dict:
         wall = time.perf_counter() - t0
     counts = ops.counts()
     decides = expected_decides(cfg)
-    out = {"phase": "run", "run": name, "policy": spec.policy, "cc": spec.cc,
-           "p50": stats.p50, "p99": stats.p99, "completed": stats.completed,
-           "offered": stats.offered, "steps": cfg.num_steps, "wall_s": wall,
+    out = {"phase": "run" if spec.engine == "fluid" else "packet",
+           "run": name, "engine": spec.engine, "policy": spec.policy,
+           "cc": spec.cc, "p50": stats.p50, "p99": stats.p99,
+           "completed": stats.completed, "offered": stats.offered,
+           "steps": cfg.num_steps, "wall_s": wall,
            "steps_per_s": cfg.num_steps / wall,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": counts, "expected_decide": decides,
-           "plain_calls": plain.calls, "reference": REFERENCE[name]}
-    if spec.redecide_period_us:
+           "plain_calls": plain.calls, "reference": reference}
+    if engine.wants_redecide(cfg):
         out["route_nonce_max"] = int(final.route_nonce.max())
     emit(out)
     require(counts["monitor_tick"] == cfg.num_steps,
@@ -1220,7 +1353,7 @@ def run_main_path(dev, name: str) -> dict:
     require(counts["route_arrivals"] == cfg.num_steps,
             f"{name}: one route_arrivals launch per step")
     require(counts["decide"] == decides,
-            f"{name}: one decide launch per trip step and epoch")
+            f"{name}: one decide launch per trip step and epoch or armed slot")
     require(counts["cong_update"] == counts["lcmp_decide"] == 0,
             f"{name}: the standalone entries are not on the path")
     require(plain.calls == 0, f"{name}: no plain version ran on the card")
@@ -1228,7 +1361,11 @@ def run_main_path(dev, name: str) -> dict:
             f"{name}: finite slowdowns")
     require(np.isfinite(util).all(), f"{name}: finite utilization")
     require(bool(torch.isfinite(final.q_bytes).all()), f"{name}: finite queues")
-    r50, r99, rdone, roffered = REFERENCE[name]
+    if spec.engine == "packet":
+        require(bool((final.fq >= 0).all()) and float(final.hist_q.max())
+                <= cfg.buffer_bytes * cfg.cap_scale,
+                f"{name}: hop queues non-negative, queues inside the buffer")
+    r50, r99, rdone, roffered = reference
     parents = int(flows.subflow_of.max()) + 1 if flows.subflow_of is not None \
         else flows.num_flows
     require(stats.offered == roffered == parents,
@@ -1240,11 +1377,17 @@ def run_main_path(dev, name: str) -> dict:
     return out
 
 
-def phase_runs(dev) -> dict:
-    runs = {name: run_main_path(dev, name) for name in RUNS}
-    for a, b, stat in ORDERINGS:
+def phase_runs(dev, names=tuple(RUNS), orderings=tuple(ORDERINGS)) -> dict:
+    runs = {name: run_main_path(dev, name) for name in names}
+    for a, b, stat in orderings:
         require(runs[a][stat] < runs[b][stat], f"{stat}: {a} < {b}")
     return runs
+
+
+def phase_packet(dev) -> dict:
+    """Every run of ``PACKET_RUNS`` (``run_main_path``), and the
+    reference's ``PACKET_ORDERINGS``."""
+    return phase_runs(dev, tuple(PACKET_RUNS), tuple(PACKET_ORDERINGS))
 
 
 def agree(a, b) -> bool:
@@ -1422,42 +1565,165 @@ def phase_sweep(dev, runs: dict) -> dict:
     return groups
 
 
-def phase_profile(dev, steps: int = 200) -> dict:
-    """Where a step's time goes, on testbed8 lcmp (``profile_steps``)."""
+def fidelity_grid(dev, grid: str, packet_runs: dict) -> dict:
+    """One fidelity grid (``fidelity_cells``) through one ``run_sweep`` on
+    the card: one ``monitor_tick`` and one ``route_arrivals`` launch a
+    step for each of its four groups, no ``decide``, no standalone entry,
+    no plain version; each cell within the bands of its reference number
+    (``PACKET_REFERENCE`` or ``FIDELITY_REFERENCE``), and each cell that
+    phase packet ran alone agreeing with that run to the printed digits
+    (phase sweep holds merged fluid cells to their sequential runs, and
+    the CPU tests every merged cell bit for bit); the log-space Pearson r
+    of packet against fluid within ``PEARSON_BAND`` of the reference's;
+    LCMP below ECMP in p50 and p99 on testbed8 under both engines."""
+    from repro_torch.kernels import ops
     from repro_torch.netsim import experiment as pexp
-    from repro_torch.netsim import fluid
-    _, table, flows, cfg = pexp.build_experiment(
-        pexp.ExpSpec(**TESTBED8, policy="lcmp"))
-    arrs, st = fluid.build(table, flows, cfg, device=dev)
-    return profile_steps(arrs, st, cfg, "testbed8 lcmp load 0.5, from step 300",
-                         steps)
+    from repro_torch.netsim import sweep
+    cells = fidelity_cells(grid)
+    specs = [pexp.ExpSpec(**kw) for _, kw, _ in cells]
+    keys = {}
+    for spec in specs:
+        keys.setdefault(sweep.static_key(spec), []).append(spec)
+    cfgs = [sweep.group_config(g, key)[1] for key, g in keys.items()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        rep = sweep.run_sweep(specs, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = sum(c.num_steps for c in cfgs)
+    decides = sum(expected_decides(c) for c in cfgs)
+
+    rows, by = [], {}
+    for (name, kw, run), res in zip(cells, rep.results):
+        st = res.stats
+        row = {"cell": name, "p50": st.p50, "p99": st.p99,
+               "completed": st.completed, "offered": st.offered,
+               "reference": PACKET_REFERENCE[run] if run
+               else FIDELITY_REFERENCE[name]}
+        if run:
+            alone = SimpleNamespace(**{k: packet_runs[run][k]
+                                       for k in ("p50", "p99", "completed")})
+            row.update({"run_alone": run,
+                        "run_alone_p50_p99_completed": [
+                            alone.p50, alone.p99, alone.completed],
+                        "agrees_with_run_alone": agree(st, alone)})
+        rows.append(row)
+        by[(name.split("/")[1], kw["policy"], kw["engine"])] = st
+    fl, pk = [], []
+    for scen in FIDELITY_LOADS:
+        for pol in FIDELITY_POLICIES:
+            a, b = by[(scen, pol, "fluid")], by[(scen, pol, "packet")]
+            fl += [a.p50, a.p99]
+            pk += [b.p50, b.p99]
+    r = log_pearson(fl, pk)
+    t8 = {(pol, eng): by[("testbed8", pol, eng)] for pol in ("lcmp", "ecmp")
+          for eng in ("fluid", "packet")}
+    ordered = {eng: t8[("lcmp", eng)].p50 < t8[("ecmp", eng)].p50
+               and t8[("lcmp", eng)].p99 < t8[("ecmp", eng)].p99
+               for eng in ("fluid", "packet")}
+    out = {"phase": "packet_sweep", "grid": grid, "cells": len(cells),
+           "groups": rep.num_groups, "group_cells": rep.group_cells,
+           "steps": steps, "wall_s": wall, "max_memory_allocated": peak,
+           "launches": counts, "expected_decide": decides,
+           "plain_calls": plain.calls, "pearson_log": r,
+           "reference_pearson_log": FIDELITY_PEARSON[grid],
+           "meets_paper_bar": r >= PAPER_PEARSON,
+           "lcmp_beats_ecmp_both_engines": ordered, "per_cell": rows}
+    emit(out)
+    require(rep.num_groups == 4, f"{grid}: one group per scenario and engine")
+    require(counts["monitor_tick"] == steps and counts["route_arrivals"] == steps,
+            f"{grid}: one monitor_tick and one route_arrivals launch a step "
+            "for each group")
+    require(counts["decide"] == decides, f"{grid}: no decide launch")
+    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+            f"{grid}: the standalone entries are not on the path")
+    require(plain.calls == 0, f"{grid}: no plain version ran on the card")
+    for row, res in zip(rows, rep.results):
+        name, st, (r50, r99, rdone, roffered) = row["cell"], res.stats, \
+            row["reference"]
+        require(np.isfinite(st.slowdown).all() and (st.slowdown >= 1).all()
+                and np.isfinite(res.util).all(), f"{name}: finite results")
+        require(st.offered == roffered, f"{name}: offered flows equal the "
+                "reference's")
+        require(within(st.p50, r50, P50_BAND), f"{name}: p50 in band")
+        require(within(st.p99, r99, P99_BAND), f"{name}: p99 in band")
+        require(abs(st.completed - rdone) <= COMPLETED_BAND * roffered,
+                f"{name}: completed in band")
+        require(row.get("agrees_with_run_alone", True),
+                f"{name}: the batched cell agrees with its run alone to the "
+                "printed digits")
+    require(abs(r - FIDELITY_PEARSON[grid]) <= PEARSON_BAND,
+            f"{grid}: Pearson r {r:.4f} within {PEARSON_BAND} of the "
+            f"reference's {FIDELITY_PEARSON[grid]}")
+    require((r >= PAPER_PEARSON) == (FIDELITY_PEARSON[grid] >= PAPER_PEARSON),
+            f"{grid}: Pearson r on the same side of the paper's bar as the "
+            "reference's")
+    require(all(ordered.values()), f"{grid}: lcmp below ecmp in p50 and p99 "
+            "on testbed8 under both engines")
+    return out
+
+
+def phase_packet_sweep(dev, packet_runs: dict) -> dict:
+    """fidelity_bench's grid at its default and quick scales
+    (``fidelity_grid``)."""
+    return {grid: fidelity_grid(dev, grid, packet_runs)
+            for grid in FIDELITY_DURATION}
+
+
+def phase_profile(dev, steps: int = 200) -> list:
+    """Where a step's time goes (``profile_steps``): a fluid testbed8
+    lcmp step, then a packet slot of fidelity_bench's testbed8 lcmp
+    cell."""
+    from repro_torch.netsim import engine
+    from repro_torch.netsim import experiment as pexp
+    out = []
+    # a packet slot issues 2.6x the fluid step's kernels: a quarter of the
+    # window keeps the profiler's event count (and its host time) alike
+    for kw, label, n in ((dict(TESTBED8, policy="lcmp"),
+                          "testbed8 lcmp load 0.5, from step 300", steps),
+                         (PACKET_RUNS["packet/testbed8/lcmp"],
+                          "packet testbed8 lcmp load 0.3 seed 1, from slot 300",
+                          steps // 4)):
+        _, table, flows, cfg = pexp.build_experiment(pexp.ExpSpec(**kw))
+        arrs, st = engine.get_engine(cfg.engine).build(table, flows, cfg,
+                                                       device=dev)
+        out.append(profile_steps(arrs, st, cfg, label, n))
+    return out
 
 
 def profile_steps(arrs, st, cfg, label: str, steps: int = 200,
                   phase: str = "profile") -> dict:
     """Where a step's time goes in world ``arrs``/``st`` after 300 warm-up
-    steps: the wall time of ``steps`` plain steps, then ``steps`` more
-    under ``torch.profiler`` for the device-busy time, the idle share,
-    kernels per step, the two fused kernels' device time and the kernels
-    that take the most of it."""
+    steps, under ``torch.inference_mode`` as ``run`` steps: the wall time
+    of ``steps`` plain steps, then ``steps`` more under
+    ``torch.profiler`` for the device-busy time, the idle share, kernels
+    per step, the two fused kernels' and ``index_add_``'s device time and
+    the kernels that take the most of it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.netsim import fluid
-    step = fluid.make_step(arrs, cfg)
-    for t in range(300):
-        st = step(st, t)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(300, 300 + steps):
-        st = step(st, t)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for t in range(300 + steps, 300 + 2 * steps):
+    from repro_torch.netsim import engine
+    step = engine.get_engine(cfg.engine).make_step(arrs, cfg)
+    with torch.inference_mode():
+        for t in range(300):
             st = step(st, t)
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in range(300, 300 + steps):
+            st = step(st, t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(300 + steps, 300 + 2 * steps):
+                st = step(st, t)
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time for e in kern)
@@ -1467,7 +1733,11 @@ def profile_steps(arrs, st, cfg, label: str, steps: int = 200,
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     own = {k: sum(v for n, v in by_name.items() if f"{k}_kernel" in n) / steps
            for k in ("monitor_tick", "route_arrivals")}
-    out = {"phase": phase, "spec": label,
+    # index_add_'s device time: the device time of its op's kernels
+    index_add = sum(a.device_time_total if hasattr(a, "device_time_total")
+                    else a.cuda_time_total
+                    for a in prof.key_averages() if a.key == "aten::index_add_")
+    out = {"phase": phase, "spec": label, "engine": cfg.engine,
            "steps": steps, "wall_ms_per_step": wall / steps * 1e3,
            "wall_ms_per_step_profiled": wall_prof / steps * 1e3,
            "device_busy_ms_per_step": busy_us / steps / 1e3,
@@ -1475,6 +1745,7 @@ def profile_steps(arrs, st, cfg, label: str, steps: int = 200,
            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
            "kernels_per_step": len(kern) / steps,
            "own_kernels_device_us_per_step": own,
+           "index_add_device_us_per_step": index_add / steps,
            "top_device_us_per_step": {n[:90]: v / steps for n, v in top}}
     emit(out)
     require(len(kern) > 0, "profile: the step ran kernels on the device")
@@ -1561,13 +1832,20 @@ def sweep_device_vs_cpu(dev, policies=("lcmp", "ecmp", "redte")) -> dict:
 def phase_device_vs_cpu(dev) -> list:
     """testbed8 lcmp, a schedule run (testbed8_failover lcmp with the
     trip at 50 ms: step 250, active flows on the tripped link) and a
-    sweep group."""
+    sweep group; then the packet engine: fidelity_bench's testbed8 lcmp
+    cell and the same failover (go-back-N at the trip)."""
+    fail = dict(topology="testbed8_failover:fail_ms=50", load=0.3,
+                policy="lcmp")
     return [device_vs_cpu(dev, dict(TESTBED8, policy="lcmp"),
                           "testbed8 lcmp load 0.5 100 ms"),
-            device_vs_cpu(dev, dict(topology="testbed8_failover:fail_ms=50",
-                                    load=0.3, policy="lcmp"),
+            device_vs_cpu(dev, fail,
                           "testbed8_failover:fail_ms=50 lcmp load 0.3 100 ms"),
-            sweep_device_vs_cpu(dev)]
+            sweep_device_vs_cpu(dev),
+            device_vs_cpu(dev, PACKET_RUNS["packet/testbed8/lcmp"],
+                          "packet testbed8 lcmp load 0.3 seed 1 100 ms"),
+            device_vs_cpu(dev, dict(fail, engine="packet"),
+                          "packet testbed8_failover:fail_ms=50 lcmp load 0.3 "
+                          "100 ms")]
 
 
 def adam_bound(cfg, t: int) -> float:
@@ -1843,7 +2121,8 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
     ``route_arrivals`` at testbed8's shape (lcmp, the row with the most
     arrivals) and ``decide`` at wan2000's (lcmp, every flow, the
     failover's read), with their launches summed over the runs of
-    phase 4 and the groups of phase sweep; the standalone ``cong_update``
+    phases run and packet and the groups of phases sweep and
+    packet_sweep; the standalone ``cong_update``
     and ``lcmp_decide`` entries, which the main path does not launch,
     stand beside them."""
     runs = {**runs, **{f"sweep/{g}": r for g, r in sweeps.items()}}
@@ -1916,12 +2195,15 @@ def main() -> int:
     phase_build()
     checks = phase_kernel_check(dev, main_path_shapes(dev))
     runs = phase_runs(dev)
+    packet_runs = phase_packet(dev)
     phase_profile(dev)
     sweeps = phase_sweep(dev, runs)
+    fidelity = phase_packet_sweep(dev, packet_runs)
     phase_device_vs_cpu(dev)
     train = phase_train(dev)
     phase_train_device_vs_cpu(dev)
-    emit(kernel_summary(checks, runs, train, sweeps))
+    emit(kernel_summary(checks, {**runs, **packet_runs}, train,
+                        {**sweeps, **fidelity}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -1,10 +1,10 @@
 """Carry engine state across from the reference package.
 
-The reference's ``SimArrays``/``SimState`` arrive as flat dicts of numpy
-arrays keyed by field name, nested fields dotted (``tables.q_thresh``,
-``cong.trend``), so this module never sees the reference's types.
-``to_numpy`` flattens the port's dataclasses the same way, for
-comparisons.
+The reference's ``SimArrays``/``SimState`` (or ``PacketState``) arrive
+as flat dicts of numpy arrays keyed by field name, nested fields dotted
+(``tables.q_thresh``, ``cong.trend``), so this module never sees the
+reference's types. ``to_numpy`` flattens the port's dataclasses the same
+way, for comparisons.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch import device as devmod
 from repro_torch.core.cong import CongState
 from repro_torch.core.tables import SwitchTables
 from repro_torch.netsim.engine import SimArrays, SimState
+from repro_torch.netsim.packet import PacketState
 
 
 def _tensor(x, dev: torch.device) -> torch.Tensor:
@@ -35,8 +36,10 @@ def _nested(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
 def from_reference(arrays: Dict[str, np.ndarray], state: Dict[str, np.ndarray],
                    device=devmod.DEFAULT) -> Tuple[SimArrays, SimState]:
     """Flat numpy dicts of the reference's arrays and state -> the port's
-    ``SimArrays`` and ``SimState`` on ``device``. An optional array field
-    the dict lacks (the reference has no ``pair_policy``) stays None."""
+    ``SimArrays`` and ``SimState`` on ``device``; a packet engine's state
+    (the dict holds ``fq``) becomes a ``PacketState``. An optional array
+    field the dict lacks (the reference has no ``pair_policy``) stays
+    None."""
     dev = devmod.resolve(device)
     tb = _nested(arrays, "tables")
     tables = SwitchTables(
@@ -52,9 +55,10 @@ def from_reference(arrays: Dict[str, np.ndarray], state: Dict[str, np.ndarray],
     cg = _nested(state, "cong")
     cong = CongState(**{f.name: _tensor(cg[f.name], dev)
                         for f in dataclasses.fields(CongState)})
-    st = SimState(cong=cong, **{
+    cls = PacketState if "fq" in state else SimState
+    st = cls(cong=cong, **{
         f.name: _tensor(state[f.name], dev)
-        for f in dataclasses.fields(SimState) if f.name != "cong"})
+        for f in dataclasses.fields(cls) if f.name != "cong"})
     return arr, st
 
 

@@ -1,7 +1,7 @@
 """Simulation core shared by the engines (counterpart of
 ``repro/netsim/engine.py``), in PyTorch.
 
-This holds everything the fluid engine runs: ``SimConfig``,
+This holds what both engines share: ``SimConfig``,
 ``SimArrays``, ``SimState``, ``build`` (with the failure and degrade
 schedules), ``attach_link_caps``, the signal plane (``monitor_tick``,
 ``path_cong_view``), the control plane (``ctrl_refresh``,
@@ -11,8 +11,10 @@ callers (``_route_arrivals``, the failover ``_reroute_dead`` and the
 re-decision ``redecide_tick``), ``redte_tick``, the four CC laws
 (``_cc_update``: dcqcn, dctcp, timely, hpcc) and ``merge_cells``, which
 joins a sweep group's built cells into one world (``netsim.sweep``).
-The packet engine and the sanitizer raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item (``check_slice``).
+The packet engine (``netsim.packet``) runs the same planes over its own
+data plane; ``get_engine`` resolves ``SimConfig.engine`` to the module.
+The sanitizer (``checks``) raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item (``check_slice``).
 
 Under ``policy="sweep"`` each decision takes the law of its pair's cell,
 ``SimArrays.pair_policy`` (one code per pair of a merged world, see
@@ -88,11 +90,24 @@ def policy_code(policy: str) -> int:
     return POLICY_CODES[policy]
 
 
+def get_engine(name: str):
+    """The engine module (``netsim.fluid`` or ``netsim.packet``) of a
+    ``SimConfig.engine`` string: each has ``build``, ``make_step`` and
+    ``run``."""
+    if name == "fluid":
+        from repro_torch.netsim import fluid
+        return fluid
+    if name == "packet":
+        from repro_torch.netsim import packet
+        return packet
+    raise ValueError(f"unknown engine {name!r}; valid: {ENGINES}")
+
+
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """The reference's ``SimConfig`` fields that the fluid engine reads
-    (``engine`` and ``checks`` only so ``check_slice`` can refuse what is
-    not ported), with the same defaults."""
+    """The reference's ``SimConfig`` fields that the two engines read
+    (``checks`` only so ``check_slice`` can refuse what is not ported),
+    with the same defaults."""
     engine: str = "fluid"
     policy: str = "lcmp"
     cc: str = "dcqcn"
@@ -108,6 +123,11 @@ class SimConfig:
     redte_period_us: int = 100_000
     sig_delay_scale: float = 1.0
     ctrl_period_us: int = 100_000
+    # packet engine only: packet size, and the PFC XOFF/XON thresholds as
+    # fractions of the scaled buffer
+    mtu_bytes: int = 1024
+    pfc_xoff_frac: float = 0.7
+    pfc_xon_frac: float = 0.5
     select: SelectParams = SelectParams()
     pathq: PathQParams = PathQParams()
     congp: CongParams = CongParams()
@@ -147,15 +167,13 @@ class SimConfig:
 
 def check_slice(cfg: SimConfig) -> None:
     """Raise ``NotImplementedError`` for any configuration the port does
-    not run yet (the packet engine, the sanitizer), naming the
-    ``ROADMAP.md`` item that will; ``ValueError`` for an unknown engine,
-    policy (a swept one included) or CC law."""
+    not run yet (the sanitizer), naming the ``ROADMAP.md`` item that
+    will; ``ValueError`` for an unknown engine, policy (a swept one
+    included) or CC law."""
     def todo(what: str, item: str):
         raise NotImplementedError(
             f"{what} is not ported yet: ROADMAP.md queue A item {item}")
-    if cfg.engine == "packet":
-        todo("the packet engine", "5")
-    if cfg.engine != "fluid":
+    if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; valid: {ENGINES}")
     for p in cfg.policies:
         policy_code(p)
@@ -526,11 +544,13 @@ def _reroute_dead(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
 
 
 def wants_redecide(cfg: SimConfig) -> bool:
-    """Whether the fluid engine's re-decision plane is armed: a positive
-    ``redecide_period_us`` and a policy that re-decides (under the sweep,
-    any swept one)."""
-    return cfg.redecide_period_us > 0 and any(
-        p in REDECIDE_POLICIES for p in cfg.policies)
+    """Whether the engine's re-decision plane is armed: a positive knob
+    of the run's engine (``flowlet_gap_us`` for the packet engine,
+    ``redecide_period_us`` for the fluid one; each ignores the other's)
+    and a policy that re-decides (under the sweep, any swept one)."""
+    knob = (cfg.flowlet_gap_us if cfg.engine == "packet"
+            else cfg.redecide_period_us)
+    return knob > 0 and any(p in REDECIDE_POLICIES for p in cfg.policies)
 
 
 def redecide_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
@@ -569,7 +589,7 @@ def redecide_tick(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
 
 
 class StepLaunchers:
-    """The fluid step's kernels on the card, one launcher each for a run:
+    """An engine step's kernels on the card, one launcher each for a run:
     ``monitor(t, st)`` and ``route(t, st)`` launch one kernel each and
     return ``st``, whose tensors they update in place; ``decide(t, fid,
     pair, st, sig_step)`` launches one ``decide`` kernel (failover and
@@ -605,6 +625,38 @@ class StepLaunchers:
 
     def decide(self, t: int, fid, pair, st: SimState, sig_step: int):
         return self._router(st).decide(t, fid, pair, sig_step)
+
+
+def step_phases(ar: SimArrays, cfg: SimConfig):
+    """``(tick, route, decide)`` of a run's step: ``tick(t, st)`` the
+    monitor tick and ``route(t, st)`` the arrival routing, each one launch
+    through the run's ``StepLaunchers`` on the card, their plain versions
+    on the CPU; ``decide`` the launchers' ``decide`` on the card, None (the
+    plain ``decide``) on the CPU."""
+    if ar.link_cap.is_cuda:
+        launch = StepLaunchers(ar, cfg)
+        return launch.monitor, launch.route, launch.decide
+
+    def tick(t, st):
+        return monitor_tick(t, st, ar, cfg)
+
+    def route(t, st):
+        return _route_arrivals(t, st, ar, cfg)
+    return tick, route, None
+
+
+def trip_steps(ar: SimArrays, cfg: SimConfig):
+    """``(trips, down)``: the steps at which a link trips, known when the
+    run starts (one host read of the schedule here, none in the step),
+    and the steps at which ``link_alive`` changes: the trips and, where a
+    trip falls before step 0, step 0, which takes its link down with no
+    flow to reroute."""
+    if not cfg.has_failures:
+        return set(), set()
+    fail = ar.link_fail_step.cpu().numpy()
+    trips = {int(s) for s in np.unique(fail[(fail >= 0)
+                                            & (fail < cfg.num_steps)])}
+    return trips, trips | ({0} if (fail < 0).any() else set())
 
 
 def _cc_update(t: int, st: SimState, ar: SimArrays, cfg: SimConfig,
@@ -708,12 +760,13 @@ _PATH_ARRAYS = ("path_prop", "path_cap", "path_cap_gbps", "path_len",
 _FLOW_ARRAYS = ("f_arr_us", "f_size", "f_id")
 _INDEX_ARRAYS = {"path_links": "link0", "path_first": "link0",
                  "pair_cand": "path0", "f_pair": "pair0"}
-# SimState fields with a leading flow axis; c_path runs over paths,
-# redte_w over pairs, every other field (and CongState) over links
+# SimState fields (a PacketState's too) with a leading flow axis; c_path
+# runs over paths, redte_w over pairs, every other field (and CongState,
+# the packet engine's pfc_pause and hist_pause) over links
 _STATE_FLOW_FIELDS = ("flow_path", "remaining", "rate", "active", "done",
                      "fct_us", "extra_wait", "rtt_steps", "route_step",
                      "route_nonce", "last_dec", "cc_alpha", "cc_target",
-                     "prev_delay")
+                     "prev_delay", "fq", "credit", "delivered", "last_tx")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -755,8 +808,9 @@ def merge_cells(built):
     those offsets, a step's arrival row is the cells' rows side by side
     and ``pair_policy`` holds each pair's cell's law code. The cells
     share no link, so every link sum, queue and decision of a cell is
-    what the cell computes alone. Returns ``(SimArrays, SimState,
-    [CellSlice, ...])``."""
+    what the cell computes alone. Returns ``(SimArrays, state,
+    [CellSlice, ...])``, the state of the cells' class (a
+    ``PacketState`` stays one)."""
     ar0 = built[0][0]
     L, NP, NPAIR = (ar0.link_cap.shape[0], ar0.path_links.shape[0],
                     ar0.pair_cand.shape[0])
@@ -794,21 +848,23 @@ def merge_cells(built):
     cong = CongState(**{f.name: cat(lambda s, sl, n=f.name: getattr(s.cong, n),
                                     states)
                         for f in dataclasses.fields(CongState)})
-    state = SimState(cong=cong, **{
+    cls = type(states[0])
+    state = cls(cong=cong, **{
         f.name: cat(lambda s, sl, n=f.name: _shift(getattr(s, n), sl.path0)
                     if n == "flow_path" else getattr(s, n), states)
-        for f in dataclasses.fields(SimState) if f.name != "cong"})
+        for f in dataclasses.fields(cls) if f.name != "cong"})
     return arr, state, slices
 
 
 def slice_cell(st: SimState, sl: CellSlice) -> SimState:
-    """Cell ``sl``'s own state out of a merged world's state (views; its
-    ``flow_path`` moved back to the cell's path indices)."""
+    """Cell ``sl``'s own state out of a merged world's state, of the
+    same class (views; its ``flow_path`` moved back to the cell's path
+    indices)."""
     cong = CongState(**{f.name: getattr(st.cong, f.name)[sl.rows("links")]
                         for f in dataclasses.fields(CongState)})
     out = {}
-    for f in dataclasses.fields(SimState):
+    for f in dataclasses.fields(st):
         if f.name != "cong":
             v = getattr(st, f.name)[sl.rows(_state_axis(f.name))]
             out[f.name] = _shift(v, -sl.path0) if f.name == "flow_path" else v
-    return SimState(cong=cong, **out)
+    return type(st)(cong=cong, **out)

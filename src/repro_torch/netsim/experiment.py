@@ -3,12 +3,13 @@ Counterpart of ``repro/netsim/experiment.py`` (``ExpSpec``,
 ``build_world``, ``make_flows``, ``spec_to_cfg``, ``run_experiment``).
 
 ``run_experiment(spec)`` runs on the GPU; pass ``device="cpu"`` to run
-the same path on the CPU with the kernels' plain versions. Every policy,
-every CC law, the scenarios' fail and degrade schedules,
-``ctrl_period_us``, ``sig_delay_scale``, ``redecide_period_us``,
-``n_subflows`` and ``load_sched`` run; a grid of specs runs batched
-through ``netsim.sweep.run_sweep``. The packet engine, the training
-co-simulation and ``checks`` raise ``NotImplementedError`` naming their
+the same path on the CPU with the kernels' plain versions. Both engines
+(``spec.engine``: ``fluid`` or ``packet``), every policy, every CC law,
+the scenarios' fail and degrade schedules, ``ctrl_period_us``,
+``sig_delay_scale``, ``redecide_period_us`` (fluid), ``flowlet_gap_us``
+(packet), ``n_subflows`` and ``load_sched`` run; a grid of specs runs
+batched through ``netsim.sweep.run_sweep``. The training co-simulation
+and ``checks`` raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ import os
 from typing import Dict, Optional, Sequence
 
 from repro_torch import device as devmod
-from repro_torch.netsim import fluid, metrics, paths, scenarios
+from repro_torch.netsim import engine, metrics, paths, scenarios
 from repro_torch.netsim.engine import SimConfig
 from repro_torch.traffic import cdf as cdfmod
 from repro_torch.traffic import sched as schedmod
@@ -89,7 +90,7 @@ def build_world(topology: str):
     table = paths.build_path_table(t, pair_list, max_hops=scen.max_hops,
                                    detour_delay=scen.detour_delay,
                                    detour_hops=scen.detour_hops)
-    fluid.attach_link_caps(table, t)
+    engine.attach_link_caps(table, t)
     return scen, table
 
 
@@ -162,19 +163,20 @@ def spec_to_cfg(spec: ExpSpec, scen: scenarios.Scenario) -> SimConfig:
 def build_experiment(spec: ExpSpec):
     scen, table = build_world(spec.topology)
     cfg = spec_to_cfg(spec, scen)
-    fluid.check_slice(cfg)
+    engine.check_slice(cfg)
     flows = make_flows(spec, scen, table)
     return scen.topology, table, flows, cfg
 
 
 def run_experiment(spec: ExpSpec, device=devmod.DEFAULT):
-    """Build the world and traffic, run the fluid engine on ``device``,
+    """Build the world and traffic, run the spec's engine on ``device``,
     and score it: ``(FCTStats, link utilization, (topology, table,
     flows, cfg, final state))``."""
     dev = devmod.resolve(device)
     t, table, flows, cfg = build_experiment(spec)
-    arrs, state = fluid.build(table, flows, cfg, device=dev)
-    final = fluid.run(arrs, state, cfg)
+    eng = engine.get_engine(cfg.engine)
+    arrs, state = eng.build(table, flows, cfg, device=dev)
+    final = eng.run(arrs, state, cfg)
     stats = metrics.fct_stats(final, table, flows, cfg)
     util = metrics.link_utilization(final, arrs, cfg)
     return stats, util, (t, table, flows, cfg, final)

@@ -35,13 +35,14 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.netsim.engine import (  # noqa: F401  (build & co. re-exported)
-    HIST, SimArrays, SimConfig, SimState, StepLaunchers, _cc_update,
-    _reroute_dead, _route_arrivals, attach_link_caps, build, check_slice,
-    ctrl_tick, monitor_tick, redecide_tick, redte_tick, wants_redecide)
+    HIST, SimArrays, SimConfig, SimState, _cc_update, _reroute_dead,
+    attach_link_caps, build, check_slice, ctrl_tick, redecide_tick,
+    redte_tick, step_phases, trip_steps, wants_redecide)
+
+name = "fluid"
 
 
 def make_step(ar: SimArrays, cfg: SimConfig):
@@ -50,27 +51,8 @@ def make_step(ar: SimArrays, cfg: SimConfig):
     L = ar.link_cap.shape[0]
     dt = float(cfg.dt_us)
     q_max = float(cfg.buffer_bytes * cfg.cap_scale)
-    if ar.link_cap.is_cuda:         # one launcher per fused phase and run
-        launch = StepLaunchers(ar, cfg)
-        tick, route, decide = launch.monitor, launch.route, launch.decide
-    else:
-        decide = None               # engine.decide: the plain version
-
-        def tick(t, st):
-            return monitor_tick(t, st, ar, cfg)
-
-        def route(t, st):
-            return _route_arrivals(t, st, ar, cfg)
-
-    # the steps at which a link trips, known when the run starts (one
-    # host read of the schedule here, none in the step); a trip before
-    # step 0 takes its link down at step 0 with no flow to reroute
-    trips, down = set(), set()
-    if cfg.has_failures:
-        fail = ar.link_fail_step.cpu().numpy()
-        trips = {int(s) for s in np.unique(fail[(fail >= 0)
-                                                & (fail < cfg.num_steps)])}
-        down = trips | ({0} if (fail < 0).any() else set())
+    tick, route, decide = step_phases(ar, cfg)
+    trips, down = trip_steps(ar, cfg)
     epoch = (max(cfg.redecide_period_us // cfg.dt_us, 1)
              if wants_redecide(cfg) else 0)
 
@@ -151,8 +133,10 @@ def make_step(ar: SimArrays, cfg: SimConfig):
     return step
 
 
+@torch.inference_mode()
 def run(arrs: SimArrays, state: SimState, cfg: SimConfig) -> SimState:
-    """The whole horizon -> final state. ``state`` is consumed: its rings
+    """The whole horizon -> final state, under ``torch.inference_mode``
+    (no autograd bookkeeping per op). ``state`` is consumed: its rings
     and registers are updated in place."""
     step = make_step(arrs, cfg)
     for t in range(cfg.num_steps):

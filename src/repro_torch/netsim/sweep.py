@@ -1,5 +1,5 @@
-"""Batched scenario sweep: a figure's whole grid as one fluid world per
-static group (counterpart of ``repro/netsim/sweep.py``).
+"""Batched scenario sweep: a figure's whole grid as one world per static
+group (counterpart of ``repro/netsim/sweep.py``).
 
 The paper's evaluation is a grid of experiment cells (topologies x
 workloads x loads x policies x seeds, §6). ``run_sweep``:
@@ -7,22 +7,25 @@ workloads x loads x policies x seeds, §6). ``run_sweep``:
 1. groups the cells by their *static* key (``static_key``), as the
    reference does: the scenario string and the configuration with the
    policy replaced by the ``sweep`` meta-policy, so every cell of a
-   group has the same world, schedules, CC law, horizon and parameters,
-   and the policy is a per-cell law code;
+   group has the same world, engine, schedules, CC law, horizon and
+   parameters, and the policy is a per-cell law code (fluid and packet
+   cells form separate groups);
 2. builds each cell of a group with its own policy and traffic and joins
    them into one block-diagonal world (``engine.merge_cells``): cell c's
    links, paths, pairs and flows follow the earlier cells', a step's
    arrival row is the cells' rows side by side, and each pair carries
    its cell's law code (``SimArrays.pair_policy``), which the route and
    decide kernels read per arrival;
-3. runs that world through the fluid engine once (one ``monitor_tick``
-   and one ``route_arrivals`` launch a step on the card for the whole
-   group) and slices each cell's final state back out
+3. runs that world through the group's engine once (one
+   ``monitor_tick`` and one ``route_arrivals`` launch a step on the card
+   for the whole group) and slices each cell's final state back out
    (``engine.slice_cell``) for its metrics.
 
 The cells share no link, so no float sum mixes two cells: on the CPU
-each cell's result equals the sequential loop's bit for bit. On the card
-``index_add_`` sums in a varying order, as in a single run.
+each cell's result equals the sequential loop's bit for bit (the packet
+step's parked 0.0 contributions may land on another cell's links, which
+leaves its sums as they were). On the card ``index_add_`` sums in a
+varying order, as in a single run.
 
 Not carried over from the reference, since nothing is padded: the
 per-cell padding of the flow tables (``_pad_cell``, the reference
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.netsim import engine, fluid, metrics
+from repro_torch.netsim import engine, metrics
 from repro_torch.netsim.experiment import (ExpSpec, build_world, make_flows,
                                            run_experiment, spec_to_cfg)
 
@@ -125,10 +128,11 @@ def build_group(specs: Sequence[ExpSpec], device=devmod.DEFAULT,
     dev = devmod.resolve(device)
     topology, cfg = group_config(specs, key)
     scen, table = build_world(topology)
+    eng = engine.get_engine(cfg.engine)
     built, flows = [], []
     for spec in specs:
         fl = make_flows(spec, scen, table)
-        built.append(fluid.build(table, fl, dataclasses.replace(
+        built.append(eng.build(table, fl, dataclasses.replace(
             cfg, policy=spec.policy), device=dev))
         flows.append(fl)
     arrs, state, slices = engine.merge_cells(built)
@@ -145,7 +149,8 @@ def _view(st) -> SimpleNamespace:
 def run_group(group: Group) -> List[CellResult]:
     """Run a merged group over its horizon and score each cell. The
     group's state is consumed (updated in place)."""
-    final = fluid.run(group.arrs, group.state, group.cfg)
+    final = engine.get_engine(group.cfg.engine).run(group.arrs, group.state,
+                                                    group.cfg)
     out, cfg, table = [], group.cfg, group.table
     for spec, sl, flows, arrs in zip(group.specs, group.slices, group.flows,
                                      group.cell_arrs):

@@ -178,8 +178,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(engine="packet"), "item 5"),
-    (dict(engine="packet", policy="sweep"), "item 5"),
+    (dict(engine="packet", checks=1), "item 7"),
+    (dict(engine="packet", cosim_model="qwen3-4b"), "item 10"),
     (dict(checks=1), "item 7"), (dict(cosim_model="qwen3-4b"), "item 10"),
 ])
 def test_outside_the_slice_raises_naming_the_roadmap(change, item):
