@@ -19,7 +19,9 @@ the script exits non-zero and prints no result line. Phases:
    flow 0 among pads, the congestion fallback) and must leave every flow
    they do not route untouched; ``decide`` (every law) decides all of
    wan2000's flows and 2^20 bulk flows (dead links, the fallback, the
-   failover's ring step -1, salted keys); both also with a random law
+   failover's ring step -1, salted keys), its first kernel's table of
+   per-pair records held against ``decide_records_ref`` and its two
+   kernels also timed apart; both also with a random law
    per pair (the sweep's ``pair_policy``) on the merged world of the
    fig5 group and at the bulk shape; a ``lcmp_decide`` call with 9
    candidates must raise on the card;
@@ -287,6 +289,8 @@ ROUTE_BULK = dict(A=4096, T=4, L=BULK, NPAIR=4096, K=8, NP=1 << 16, H=8,
 FLOW_FIELDS = ("flow_path", "remaining", "rate", "cc_target", "active",
                "extra_wait", "rtt_steps", "route_step")
 HASH_EDGES = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+# decide's two kernels, timed apart
+STAGE_MS = ("pairs_ms", "pick_ms")
 
 # The train phase: qwen3-4b (configs/qwen3_4b.py) at full width, with the
 # depth cut from 36 layers to 4 and train_4k's global batch of 256
@@ -1015,36 +1019,48 @@ def check_decide(dev, ar, st, policy: str, label: str, iters: int, select,
     """``decide`` against its plain version for every flow of ``ar``, at
     each ``(t, sig_step, salted)`` of ``cases`` (salted: keys xor
     fmix32(nonce), as the re-decision hashes): k_idx and chosen equal bit
-    for bit, one launch a case; with ``iters``, timed at the first case."""
+    for bit, and the first kernel's table of per-pair records, unpacked
+    here on the host, equal to ``ref.decide_records_ref`` field for
+    field (``table_err``); one call a case; with ``iters``, timed at the
+    first case, the whole call and each of its two kernels alone
+    (``pairs_ms``, ``pick_ms``)."""
     from repro_torch.core.select import fmix32
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import lcmp_decide, ops, ref
     launch = ops.RouteArrivals(ar, st, policy, select, 200)
     nonce = torch.arange(ar.f_id.shape[0], device=ar.f_id.device) % 5
     salted = ar.f_id ^ fmix32(nonce)
     before = ops.counts()["decide"]
-    err, decided, none, laws = 0, 0, 0, set()
+    err, table_err, decided, none, laws = 0, 0, 0, 0, set()
     for t, sig, salt in cases:
         fid = salted if salt else ar.f_id
         k, c = launch.decide(t, fid, ar.f_pair, sig)
         kp, cp = ref.decide_ref(t, fid, ar.f_pair, st, ar, policy, select, sig)
+        want = ref.decide_records_ref(t, sig, st, ar, policy, select)
+        got = lcmp_decide.unpack_records(launch.records)
         torch.cuda.synchronize()
         err = max(err, int((k.long() - kp.long()).abs().max()),
                   int((c.long() - cp.long()).abs().max()))
+        table_err = max(table_err, *(int((got[f].long() - w.long()).abs().max())
+                                     for f, w in want.items()))
         decided += int((kp >= 0).sum())
         none += int((kp < 0).sum())
         laws |= set(row_laws(ar, ar.f_pair[kp >= 0], policy))
     require(err == 0, f"decide {label}: kernel equals plain (err {err})")
+    require(table_err == 0, f"decide {label}: the per-pair table equals "
+            f"decide_records_ref (err {table_err})")
     require(ops.counts()["decide"] == before + len(cases),
             f"decide {label}: one launch a call")
     out = dict(shape=label, N=int(ar.f_id.shape[0]), cases=cases,
                decided=decided, no_candidate=none, laws=len(laws),
-               max_abs_err=err)
+               max_abs_err=err, table_err=table_err)
     if iters:
         t, sig, _ = cases[0]
+        pairs, pick = launch.decide_stages(t, ar.f_id, ar.f_pair, sig)
         out.update(**timings(
             lambda: launch.decide(t, ar.f_id, ar.f_pair, sig),
             lambda: ref.decide_ref(t, ar.f_id, ar.f_pair, st, ar, policy,
                                    select, sig), iters),
+            pairs_ms=graph_ms(pairs, iters), pick_ms=graph_ms(pick, iters),
             host_us=host_us(lambda: launch.decide(t, ar.f_id, ar.f_pair, sig)),
             **decide_bound(ar, st, policy, sig))
     return out
@@ -1392,8 +1408,10 @@ def phase_packet(dev) -> dict:
 
 def agree(a, b) -> bool:
     """Two card runs of one cell agree to the printed digits (4
-    significant digits of p50 and p99, the same completions): the card's
-    index_add_ sums in a varying order, which moves p99's seventh digit."""
+    significant digits of p50 and p99, the same completions): the packet
+    step's index_add_ sums in a varying order, which can move p99's
+    seventh digit (the fluid step's offered load is summed in float64,
+    where the order does not show)."""
     return (abs(a.p50 - b.p50) <= 5e-4 * abs(b.p50)
             and abs(a.p99 - b.p99) <= 5e-4 * abs(b.p99)
             and a.completed == b.completed)
@@ -1500,13 +1518,15 @@ def run_sweep_group(dev, group: str, runs: dict) -> dict:
 
 
 def offered_load_probe(dev, steps: int = 500, reps: int = 50) -> dict:
-    """Where the merged fig5 step's offered-load ``index_add_`` spends its
-    time: after ``steps`` steps, the step's own sum of every flow's H
-    contributions (the 0.0 ones of unrouted and finished flows and of
-    short paths' pad hops included, all sent to path 0's links and link
-    0) against the same sum of the nonzero ones alone, each timed over
-    ``reps`` calls with CUDA events. The two sums must agree (float
-    rounding aside: atomics add in a varying order)."""
+    """What the merged fig5 step's offered-load sum costs: after ``steps``
+    steps, the step's own sum (``index_add_`` in float64, each masked 0.0
+    contribution parked on its own slot) against a float32 sum with the
+    0.0 contributions of unrouted and finished flows and of short paths'
+    pad hops all sent to link 0 (the step's earlier layout) and the float32
+    sum of the nonzero contributions alone, each timed over ``reps`` calls
+    with CUDA events. All three agree within float32 rounding, and the
+    step's sum is the same in every call (its atomics' order does not
+    show)."""
     from repro_torch.netsim import experiment as pexp
     from repro_torch.netsim import fluid, sweep
     g = sweep.build_group([pexp.ExpSpec(**kw) for kw in SWEEPS["fig5"]],
@@ -1521,31 +1541,42 @@ def offered_load_probe(dev, steps: int = 500, reps: int = 50) -> dict:
     lidx = torch.clamp_min(links_f, 0).reshape(-1)
     contrib = torch.where(links_ok, st.rate.repeat_interleave(
         links_f.shape[1]), 0.0)
-    L = g.arrs.link_cap.shape[0]
+    L, n = g.arrs.link_cap.shape[0], lidx.numel()
+    park = torch.where(links_ok, lidx, L + torch.arange(n, device=dev))
     out = {"phase": "offered_load_probe",
            "spec": f"fig5 merged sweep ({len(g.specs)} cells), step {steps}",
-           "contributions": lidx.numel(), "nonzero": int(links_ok.sum()),
+           "contributions": n, "nonzero": int(links_ok.sum()),
            "most_on_one_link": int(torch.bincount(lidx, minlength=L).max()),
            "most_nonzero_on_one_link": int(torch.bincount(
                lidx[links_ok], minlength=L).max())}
-    sums = {}
-    for name, (i, v) in {"all": (lidx, contrib),
-                         "nonzero": (lidx[links_ok], contrib[links_ok])}.items():
-        acc = torch.zeros(L, device=dev)
+    sums, same = {}, True
+    for name, (i, v, size) in {
+            "step": (park, contrib.double(), L + n),
+            "link0": (lidx, contrib, L),
+            "nonzero": (lidx[links_ok], contrib[links_ok], L)}.items():
+        def total():
+            return torch.zeros(size, dtype=v.dtype, device=dev).index_add_(
+                0, i, v)[:L].float()
         for _ in range(5):
-            acc.index_add_(0, i, v)
+            total()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
         for _ in range(reps):
-            acc.index_add_(0, i, v)
+            total()
         t1.record()
         torch.cuda.synchronize()
         out[f"{name}_us"] = t0.elapsed_time(t1) / reps * 1e3
-        sums[name] = torch.zeros(L, device=dev).index_add_(0, i, v)
-    out["max_abs_diff"] = float((sums["all"] - sums["nonzero"]).abs().max())
+        sums[name] = total()
+        if name == "step":
+            same = all(torch.equal(total(), sums[name]) for _ in range(reps))
+    out["max_abs_diff"] = max(float((sums["step"] - sums[k]).abs().max())
+                              for k in ("link0", "nonzero"))
+    out["step_sum_same_every_call"] = same
     emit(out)
-    require(torch.allclose(sums["all"], sums["nonzero"], rtol=1e-5, atol=0.0),
-            "offered_load_probe: the nonzero contributions give the step's sum")
+    require(all(torch.allclose(sums["step"], sums[k], rtol=1e-5, atol=0.0)
+                for k in ("link0", "nonzero")),
+            "offered_load_probe: the three sums agree")
+    require(same, "offered_load_probe: the step's sum is the same every call")
     return out
 
 
@@ -2175,8 +2206,10 @@ def kernel_fields(rows: list) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"],
             "call_ms": main["call_ms"], "plain_call_ms": main["plain_call_ms"],
+            **{k: main[k] for k in STAGE_MS if k in main},
             "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "call_ms",
-                                          "bound_ms", "bound_by")}
+                                          "bound_ms", "bound_by", *STAGE_MS)
+                        if k in r}
                        for r in rows]}
 
 

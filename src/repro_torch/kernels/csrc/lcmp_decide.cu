@@ -20,8 +20,8 @@
 //   and, for the laws that read it, the delayed congestion view of
 //   path_cong_view (the max over hops of hist_c[link, (t - sig_delay) mod
 //   HIST], the modulo floored so the negative offsets of early steps wrap
-//   to the ring's end); the policy's law (choose); then for a routed flow
-//   the standing-queue wait, summed hop by hop in hop order with IEEE
+//   to the ring's end); the law (pair_record, then pick); then for a routed
+//   flow the standing-queue wait, summed hop by hop in hop order with IEEE
 //   division, and rtt = max(2*path_prop // dt, 1), and IN-PLACE writes of
 //   the flow's eight fields (flow_path, remaining, rate, cc_target, active,
 //   extra_wait, rtt_steps, route_step). Pads and flows with no valid
@@ -29,40 +29,57 @@
 //   can never overwrite a real flow 0.
 //
 // - decide_launch is netsim/engine.py::decide (reference
-//   src/repro/netsim/engine.py::decide) for N given (hash key, pair): the
-//   same candidate_lane and choose, the view read at sig_step (the failover
-//   passes t - 1, which may be -1), out (k_idx, chosen path), -1 where no
-//   candidate is valid. Its callers are the failover at a trip step (all
-//   flows) and the re-decision epoch (salted keys).
+//   src/repro/netsim/engine.py::decide) for N given (hash key, pair), the
+//   view read at sig_step (the failover passes t - 1, which may be -1), out
+//   (k_idx, chosen path), -1 where no candidate is valid. Its callers are
+//   the failover at a trip step (all flows) and the re-decision epoch
+//   (salted keys). It is two kernels on the caller's stream: decide_pairs
+//   writes one record per pair of the run, decide_pick one decision per
+//   thread from its pair's record.
 //
-// The law of a decision is RouteArgs.policy, or, when pair_policy is set (a
-// merged sweep world: netsim/engine.py::merge_cells), the code of the
-// decision's pair, read once per warp (law_of): one warp decides one
-// arrival, so the dispatch stays warp-uniform with the laws mixed across
-// warps, and each decision is its cell's own law, as the reference's
-// sweep-mode decide gathers it.
-//
-// choose is the one law dispatch of all three engine entries, bit for bit
-// the reference's decide._choice over a warp's <= 8 candidate lanes:
-//   lcmp, lcmp_r  the LCMP decision above (lcmp_choose);
-//   lcmp_w        the same kept prefix, the stage-2 pick weighted by
-//                 path_cap_gbps in rank order (max(w, 1) inside the prefix,
-//                 0 outside): the count of cumulative weights <=
-//                 int32(fmix32(fid) >> 1) % total, then the same fallback;
-//   ecmp, amp     the fmix32(fid) % m-th valid slot in slot order;
-//   ucmp          cost 1000000 / max(cap, 1) (1<<30 when invalid), the first
-//                 least cost over the K slots rotated by fmix32(fid) % K;
-//   wcmp, redte   weighted hash over slot order, weights path_cap_gbps or
-//                 the pair's redte_w row, max(w, 1) where valid and 0
-//                 elsewhere; -1 when the total is 0;
-//   fatpaths      ecmp over the valid candidates of least path_len, or over
-//                 all valid ones when each of those has C_cong >=
-//                 cong_fallback;
-//   matchrdma     avail = int32(min(bneck * (256 - C_cong), 1e9)) with bneck
-//                 the least effective span capacity (link_cap_gbps x the
+// The ten laws (the reference's decide._choice, bit for bit) are written
+// once each, in two halves. Every law reads its decision's hash key only
+// through fmix32(fid); all else it reads (t, sig_step, the ring,
+// link_alive, C_path, capacities, RedTE weights) is the same for every
+// decision of one pair in one call. pair_record is the per-pair half over
+// a warp's <= 8 candidate lanes: a header sel | n << 24 | law << 28 and up
+// to 8 cumulative weights cum. pick is the per-decision half, one thread's
+// integer code on that record and fmix32(fid). By law (record; pick):
+//   lcmp, lcmp_r  sel the slot order (rank r's slot in bits 3r..3r+2),
+//                 n = keep, 1 when the least valid C_cong is at or above
+//                 cong_fallback, 0 when m = 0; order[fmix32 % n].
+//   lcmp_w        the same sel and n, cum the kept ranks' cumulative
+//                 weights max(path_cap_gbps, 1); rank = the count of
+//                 cum[r] <= int32(fmix32 >> 1) % cum[n-1] over r < n, then
+//                 order[rank] (the fallback is n = 1: rank 0).
+//   wcmp, redte   sel the identity order, n = K, cum over slot order of
+//                 max(w, 1) where valid and 0 elsewhere (w path_cap_gbps,
+//                 or the pair's redte_w row); the same weighted pick, -1
+//                 when the total cum[n-1] is <= 0.
+//   ecmp, amp     sel the valid mask, n = m; the (fmix32 % n)-th set bit.
+//   fatpaths      sel the valid candidates of least path_len, or all valid
+//                 ones when each of those has C_cong >= cong_fallback,
+//                 n = its popcount; as ecmp.
+//   ucmp,         sel the slots of least cost (ucmp 1000000 / max(cap, 1);
+//   matchrdma     matchrdma -int32(min(bneck * (256 - C_cong), 1e9)), bneck
+//                 the least effective span capacity, link_cap_gbps x the
 //                 degrade factor from link_deg_step on, float32, unfused
-//                 multiplies), then the first least -avail under ucmp's
-//                 rotation.
+//                 multiplies; BIG when invalid), n = K; the first set bit
+//                 at or after fmix32 % K, cyclically (the reference's first
+//                 least cost over the candidates rotated by fmix32 % K).
+// Under pair_policy (a merged sweep world: netsim/engine.py::merge_cells)
+// each pair's law is its own code, read once per warp (law_of), so the
+// dispatch of pair_record stays warp-uniform with the laws mixed across
+// warps; pick reads the law from the record.
+//
+// decide's record table is RouteArgs.records, npair x 16 int32 (64 bytes a
+// pair, 64-byte aligned), which the host launcher allocates once per run.
+// Word k < 8 holds slot k's path id (-1 for a pad) in its low 28 bits,
+// sign-extended on reading (the host checks that path ids fit), and nibble
+// k of the header in its top 4 bits; words 8-15 hold cum[0..7] (0 past n
+// and for the unweighted laws). Lanes 0-15 of a warp store a record in one
+// 64-byte write; stage 2 reads words 0-7 (one 32-byte sector), words 8-15
+// only for the weighted laws, and never pair_cand.
 //
 // Bound on the H100: bytes, and at the engine's sizes launch latency. The
 // standalone decision reads 8 bytes of id and 9 bytes per candidate and
@@ -76,14 +93,28 @@
 // call moves under 16 KB, which the card's 3.35 TB/s moves in a few
 // nanoseconds; what costs is the chain of dependent loads (arrival -> flow
 // -> pair -> candidate -> hops -> ring). The layout overlaps those chains:
-// one warp per arrival slot (per decision, in decide) with its lanes over
-// the candidates, so the K chains run side by side; the lanes' values meet
-// by warp shuffles; the chosen path's hops are read one per lane and one
-// lane adds them in hop order and stores the eight fields. Everything fixed
-// for a run sits in one struct that the host builds once, and the step's
-// queue and eight field pointers in a second, which the host rewrites only
-// where a tensor changed, so a launch passes two struct pointers, t and the
-// stream.
+// one warp per arrival slot with its lanes over the candidates, so the K
+// chains run side by side; the lanes' values meet by warp shuffles; the
+// chosen path's hops are read one per lane and one lane adds them in hop
+// order and stores the eight fields.
+//
+// decide must move each pair's candidate bytes once and 16 bytes a decision
+// (an 8-byte key, the pair, two 4-byte results): 18 MB for 2^20 decisions
+// over 4096 pairs, 5.5 us at 3.35 TB/s. At the main path's 16,745-50,100
+// decisions over 42-840 pairs it is under 1 MB, and two launches and stage
+// 1's dependent loads bound it. Stage 1 takes the route's layout, one warp
+// per pair. Stage 2 takes one thread per decision: the decisions are
+// independent and 10^4-10^6 a call, so the key, pair and result accesses
+// coalesce and each decision costs one record read from L2 (4096 records
+// are 256 KB; a world with few pairs reads the same lines, which L1
+// holds) and a few dozen integer operations. (A warp per decision, the
+// layout before, left 24 of 32 lanes idle and redid the pair's K x H
+// gathers, sort and weights for every decision.)
+//
+// Everything fixed for a run sits in one struct that the host builds once,
+// and the step's queue and eight field pointers in a second, which the host
+// rewrites only where a tensor changed, so a launch passes two struct
+// pointers, t and the stream.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -151,16 +182,6 @@ __device__ __forceinline__ int lcmp_choose(int (&key)[P_MAX], int num_valid,
   int pick = (int)(fmix32(fid) % (uint32_t)keep);
   if (min_cong >= cong_fallback) pick = 0;
   return num_valid > 0 ? (key_at(key, pick) & (P_MAX - 1)) : -1;
-}
-
-// ECMP: the fmix32(fid) % m-th of the m valid slots, in slot order (-1
-// when none is valid). vmask holds the valid slots as bits.
-__device__ __forceinline__ int ecmp_choose(uint32_t vmask, uint32_t fid) {
-  const int num_valid = __popc(vmask);
-  if (num_valid == 0) return -1;
-  uint32_t m = vmask;
-  for (uint32_t r = fmix32(fid) % (uint32_t)num_valid; r > 0; --r) m &= m - 1;
-  return __ffs(m) - 1;
 }
 
 // The least of v over lanes 0-7, in every lane (lanes 8-31 mix only among
@@ -237,6 +258,8 @@ struct RouteArgs {
   const int* pair_policy;       // (NPAIR,) law code per pair, or null
   long long hist_len;
   int A, K, H, policy, alpha, beta, keep_num, cong_fallback, dt_us;
+  int* records;                 // (npair, RECORD_WORDS) decide's table
+  int npair;
 };
 
 // What a step passes: the link queues, and the per-flow state the route
@@ -254,12 +277,30 @@ struct StepTensors {
   int* route_step;
 };
 
+#define RECORD_WORDS 16
+#define PICK_THREADS 256
+#define IDENTITY_ORDER 0xFAC688u  // rank r -> slot r, 3 bits a rank
+#define PATH_BITS 28              // a table word: path id low, header nibble high
+
 // What one lane knows of its candidate (lane k < K: slot k of the pair).
 struct Lane {
   int cand;      // path index, -1 for a pad slot or a lane past K
   bool valid;    // the candidate exists and every hop is alive
   int cc;        // the delayed congestion view (laws that read it)
   float bneck;   // matchrdma: the least effective span capacity
+};
+
+// A pair's record as one thread holds it for pick: the header and cum.
+struct Record {
+  uint32_t hdr;      // sel (bits 0-23) | n << 24 | law << 28
+  int cum[P_MAX];    // cumulative weights, 0 past n and for unweighted laws
+};
+
+// A pair's record as pair_record leaves it in a warp: the header in every
+// lane, cum[lane] in lanes 0-7.
+struct PairRec {
+  uint32_t hdr;
+  int cum;
 };
 
 // The law of a decision for pair `pair` (the same in every lane of a warp).
@@ -271,6 +312,10 @@ __device__ __forceinline__ bool reads_view(int policy) {
   return policy == POLICY_LCMP || policy == POLICY_LCMP_W ||
          policy == POLICY_LCMP_R || policy == POLICY_FATPATHS ||
          policy == POLICY_MATCHRDMA;
+}
+
+__device__ __forceinline__ bool weighted(int law) {
+  return law == POLICY_LCMP_W || law == POLICY_WCMP || law == POLICY_REDTE;
 }
 
 // Lane `lane`'s candidate of pair `pair`: hop liveness, the view at ring
@@ -314,46 +359,26 @@ __device__ __forceinline__ Lane candidate_lane(const RouteArgs& a, int law,
   return l;
 }
 
-// The first least cost over the K slots rotated by rot (-1 when no slot is
-// valid): the reference's argmin over the rotated candidates.
-__device__ __forceinline__ int rotated_argmin(int cost, int K, uint32_t rot,
-                                              uint32_t vmask) {
-  int best = 2147483647, choice = -1;
-  for (int j = 0; j < K; ++j) {
-    const int idx = (int)(((uint32_t)j + rot) % (uint32_t)K);
-    const int c = __shfl_sync(FULL, cost, idx);
-    if (c < best) {
-      best = c;
-      choice = idx;
-    }
+// Inclusive prefix sum over lanes 0-7 (and within each later group of 8).
+__device__ __forceinline__ int scan8(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < P_MAX; d <<= 1) {
+    const int u = __shfl_up_sync(FULL, v, d, P_MAX);
+    if ((lane & (P_MAX - 1)) >= d) v += u;
   }
-  return vmask ? choice : -1;
+  return v;
 }
 
-// Weighted hash over slot order: the count of cumulative weights <=
-// int32(fmix32(fid) >> 1) % total (zero-weight slots count too), -1 when
-// the total is 0. w is this lane's weight, 0 past K.
-__device__ __forceinline__ int weighted_hash(int w, int K, uint32_t fid) {
-  int total = 0;
-  for (int i = 0; i < K; ++i) total += __shfl_sync(FULL, w, i);
-  if (total <= 0) return -1;
-  const int h = (int)(fmix32(fid) >> 1) % total;
-  int cum = 0, count = 0;
-  for (int i = 0; i < K; ++i) {
-    cum += __shfl_sync(FULL, w, i);
-    count += cum <= h;
-  }
-  return count;
-}
-
-// The law dispatch: the candidate slot law `law` picks (-1 when none is
-// valid), the same in every lane. Every lane of the warp calls it, with its
-// own candidate in l; the branch is the same for the whole warp.
-__device__ int choose(const RouteArgs& a, int law, const Lane& l, int lane,
-                      int pair, uint32_t fid) {
+// The per-pair half of law `law` (see the note at the top). Every lane of
+// the warp calls it, with its own candidate in l; the branch is the same
+// for the whole warp. A code outside the ten gives n = 0: every pick -1.
+__device__ PairRec pair_record(const RouteArgs& a, int law, const Lane& l,
+                               int lane, int pair) {
   const uint32_t vmask = __ballot_sync(FULL, l.valid);
-  const int num_valid = __popc(vmask);
+  const int m = __popc(vmask);
   const int capg = l.cand >= 0 ? a.path_cap_gbps[l.cand] : 0;
+  uint32_t sel = 0;
+  int n = 0, w = 0;                 // w: this lane's weight, weighted laws
   switch (law) {
     case POLICY_LCMP:
     case POLICY_LCMP_R:
@@ -364,57 +389,121 @@ __device__ int choose(const RouteArgs& a, int law, const Lane& l, int lane,
 #pragma unroll
       for (int i = 0; i < P_MAX; ++i)
         key[i] = __shfl_sync(FULL, cost * P_MAX + lane, i);
+      sort8(key);                    // distinct keys: a total order
+#pragma unroll
+      for (int r = 0; r < P_MAX; ++r)
+        sel |= (uint32_t)(key[r] & (P_MAX - 1)) << (3 * r);
       const int mc = min8(l.valid ? l.cc : SCORE_MAX + 1);  // least valid C_cong
-      if (law != POLICY_LCMP_W)
-        return lcmp_choose(key, num_valid, mc, fid, a.keep_num, a.cong_fallback);
-      sort8(key);
-      const int keep = max((num_valid + a.keep_num - 1) / a.keep_num, 1);
-      int w[P_MAX];
-      int total = 0;
-#pragma unroll
-      for (int r = 0; r < P_MAX; ++r) {   // the weights in rank order
-        const int wr = __shfl_sync(FULL, capg, key[r] & (P_MAX - 1));
-        w[r] = r < keep ? max(wr, 1) : 0;
-        total += w[r];
+      const int keep = max((m + a.keep_num - 1) / a.keep_num, 1);
+      n = m == 0 ? 0 : (mc >= a.cong_fallback ? 1 : keep);
+      if (law == POLICY_LCMP_W) {   // rank `lane`'s weight; kept ranks are valid
+        const int wr = __shfl_sync(FULL, capg, (sel >> (3 * (lane & 7))) & 7);
+        w = lane < n ? max(wr, 1) : 0;
       }
-      const int hv = (int)(fmix32(fid) >> 1) % max(total, 1);
-      int pick = 0, cum = 0;
-#pragma unroll
-      for (int r = 0; r < P_MAX; ++r) {
-        cum += w[r];
-        pick += cum <= hv;
-      }
-      if (mc >= a.cong_fallback) pick = 0;
-      return num_valid > 0 ? (key_at(key, pick) & (P_MAX - 1)) : -1;
+      break;
     }
     case POLICY_ECMP:
     case POLICY_AMP:
-      return ecmp_choose(vmask, fid);
-    case POLICY_UCMP: {
-      const int cost = l.valid ? 1000000 / max(capg, 1) : BIG;
-      return rotated_argmin(cost, a.K, fmix32(fid) % (uint32_t)a.K, vmask);
-    }
+      sel = vmask;
+      n = m;
+      break;
+    case POLICY_UCMP:
     case POLICY_MATCHRDMA: {
-      const float avail = __fmul_rn(l.bneck, (float)(256 - l.cc));
-      const int cost = l.valid ? -(int)fminf(avail, 1e9f) : BIG;
-      return rotated_argmin(cost, a.K, fmix32(fid) % (uint32_t)a.K, vmask);
+      int cost = BIG;
+      if (law == POLICY_UCMP) {
+        if (l.valid) cost = 1000000 / max(capg, 1);
+      } else {
+        const float avail = __fmul_rn(l.bneck, (float)(256 - l.cc));
+        if (l.valid) cost = -(int)fminf(avail, 1e9f);
+      }
+      const int least = min8(cost);
+      sel = __ballot_sync(FULL, l.valid && cost == least);
+      n = a.K;
+      break;
     }
     case POLICY_WCMP:
-      return weighted_hash(l.valid ? max(capg, 1) : 0, a.K, fid);
     case POLICY_REDTE: {
-      const int w = l.valid ? a.redte_w[(long long)pair * a.K + lane] : 0;
-      return weighted_hash(l.valid ? max(w, 1) : 0, a.K, fid);
+      const int x = law == POLICY_WCMP ? capg
+                    : (l.valid ? a.redte_w[(long long)pair * a.K + lane] : 0);
+      w = l.valid ? max(x, 1) : 0;
+      sel = IDENTITY_ORDER;
+      n = a.K;
+      break;
     }
     case POLICY_FATPATHS: {
       const int plen = l.valid ? a.path_len[l.cand] : BIG;
       const int minlen = min8(plen);
       const bool layer0 = l.valid && plen == minlen;
       const bool spill = min8(layer0 ? l.cc : BIG) >= a.cong_fallback;
-      return ecmp_choose(__ballot_sync(FULL, spill ? l.valid : layer0), fid);
+      sel = __ballot_sync(FULL, spill ? l.valid : layer0);
+      n = __popc(sel);
+      break;
+    }
+    default:
+      break;
+  }
+  PairRec r;
+  r.hdr = sel | ((uint32_t)n << 24) | ((uint32_t)law << 28);
+  r.cum = 0;
+  if (weighted(law)) {               // the same branch in every lane
+    const int cum = scan8(w, lane);
+    r.cum = lane < n ? cum : 0;
+  }
+  return r;
+}
+
+// The per-decision half: the candidate slot of a decision with hash key
+// fid under its pair's record (-1 when none is valid). One thread's
+// integer code; runtime indices go through selects, never local memory.
+__device__ __forceinline__ int pick(const Record& r, uint32_t fid) {
+  const int law = (int)(r.hdr >> 28);
+  const int n = (int)((r.hdr >> 24) & 15u);
+  const uint32_t sel = r.hdr & 0xFFFFFFu;
+  const uint32_t hv = fmix32(fid);
+  switch (law) {
+    case POLICY_LCMP:
+    case POLICY_LCMP_R:
+      return n > 0 ? (int)((sel >> (3 * (hv % (uint32_t)n))) & 7u) : -1;
+    case POLICY_LCMP_W:
+    case POLICY_WCMP:
+    case POLICY_REDTE: {
+      int total = r.cum[0];
+#pragma unroll
+      for (int i = 1; i < P_MAX; ++i) total = (i == n - 1) ? r.cum[i] : total;
+      if (n == 0 || total <= 0) return -1;
+      const int h = (int)(hv >> 1) % total;
+      int rank = 0;
+#pragma unroll
+      for (int i = 0; i < P_MAX; ++i) rank += (i < n && r.cum[i] <= h);
+      return (int)((sel >> (3 * rank)) & 7u);
+    }
+    case POLICY_ECMP:
+    case POLICY_AMP:
+    case POLICY_FATPATHS: {
+      if (n == 0) return -1;
+      uint32_t mk = sel;
+      for (uint32_t k = hv % (uint32_t)n; k > 0; --k) mk &= mk - 1;
+      return __ffs(mk) - 1;
+    }
+    case POLICY_UCMP:
+    case POLICY_MATCHRDMA: {
+      if (sel == 0) return -1;
+      const uint32_t hi = sel & (0xFFFFFFFFu << (hv % (uint32_t)n));
+      return __ffs(hi ? hi : sel) - 1;
     }
     default:
       return -1;
   }
+}
+
+// A warp's record in every lane, for pick (cum only where the law reads it).
+__device__ __forceinline__ Record warp_record(const PairRec& p) {
+  Record r;
+  r.hdr = p.hdr;
+  const bool wt = weighted((int)(p.hdr >> 28));
+#pragma unroll
+  for (int i = 0; i < P_MAX; ++i) r.cum[i] = wt ? __shfl_sync(FULL, p.cum, i) : 0;
+  return r;
 }
 
 __global__ void __launch_bounds__(THREADS) route_arrivals_kernel(
@@ -429,7 +518,7 @@ __global__ void __launch_bounds__(THREADS) route_arrivals_kernel(
 
   const int law = law_of(a, pair);
   const Lane l = candidate_lane(a, law, pair, lane, t, t);
-  const int kidx = choose(a, law, l, lane, pair, fid);
+  const int kidx = pick(warp_record(pair_record(a, law, l, lane, pair)), fid);
   if (kidx < 0) return;                          // no valid candidate
   const int path = __shfl_sync(FULL, l.cand, kidx);
 
@@ -463,29 +552,80 @@ extern "C" int route_arrivals_launch(const RouteArgs* args,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(THREADS) decide_kernel(
-    const RouteArgs a, int N, const long long* __restrict__ fids,
-    const int* __restrict__ pairs, int* __restrict__ k_out,
-    int* __restrict__ path_out, int t, int sig_step) {
+// decide's stage 1: one warp per pair writes the pair's record (lanes 0-7
+// the path words with the header's nibbles, lanes 8-15 the weights).
+__global__ void __launch_bounds__(THREADS) decide_pairs_kernel(
+    const RouteArgs a, int t, int sig_step) {
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (i >= N) return;                            // the whole warp leaves
-  const int pair = pairs[i];
+  const int pair = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (pair >= a.npair) return;                   // the whole warp leaves
   const int law = law_of(a, pair);
   const Lane l = candidate_lane(a, law, pair, lane, t, sig_step);
-  const int kidx = choose(a, law, l, lane, pair, (uint32_t)fids[i]);
-  const int path = __shfl_sync(FULL, l.cand, max(kidx, 0));
-  if (lane != 0) return;
+  const PairRec r = pair_record(a, law, l, lane, pair);
+  const int cum = __shfl_sync(FULL, r.cum, lane & (P_MAX - 1));
+  int* rec = a.records + (long long)pair * RECORD_WORDS;
+  if (lane < P_MAX)
+    rec[lane] = (int)(((uint32_t)l.cand & ((1u << PATH_BITS) - 1)) |
+                      (((r.hdr >> (4 * lane)) & 15u) << PATH_BITS));
+  else if (lane < RECORD_WORDS)
+    rec[lane] = cum;
+}
+
+// decide's stage 2: one thread per decision, from its pair's record.
+__global__ void __launch_bounds__(PICK_THREADS) decide_pick_kernel(
+    const int4* __restrict__ records, int N, const long long* __restrict__ fids,
+    const int* __restrict__ pairs, int* __restrict__ k_out,
+    int* __restrict__ path_out) {
+  const int i = blockIdx.x * PICK_THREADS + threadIdx.x;
+  if (i >= N) return;
+  const int4* rp = records + (long long)pairs[i] * (RECORD_WORDS / 4);
+  const int4 lo = rp[0], hi = rp[1];
+  const int word[P_MAX] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  Record r;
+  r.hdr = 0;
+#pragma unroll
+  for (int k = 0; k < P_MAX; ++k)
+    r.hdr |= ((uint32_t)word[k] >> PATH_BITS) << (4 * k);
+  if (weighted((int)(r.hdr >> 28))) {
+    const int4 c0 = rp[2], c1 = rp[3];
+    r.cum[0] = c0.x; r.cum[1] = c0.y; r.cum[2] = c0.z; r.cum[3] = c0.w;
+    r.cum[4] = c1.x; r.cum[5] = c1.y; r.cum[6] = c1.z; r.cum[7] = c1.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < P_MAX; ++k) r.cum[k] = 0;
+  }
+  const int kidx = pick(r, (uint32_t)fids[i]);
+  int path = -1;
+#pragma unroll
+  for (int k = 0; k < P_MAX; ++k)   // the low bits, sign-extended
+    path = kidx == k ? (int)((uint32_t)word[k] << (32 - PATH_BITS)) >> (32 - PATH_BITS)
+                     : path;
   k_out[i] = kidx;
-  path_out[i] = kidx >= 0 ? path : -1;
+  path_out[i] = path;
+}
+
+extern "C" int decide_pairs_launch(const RouteArgs* args, int t, int sig_step,
+                                   void* stream) {
+  const int blocks = (args->npair + WARPS - 1) / WARPS;
+  decide_pairs_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      *args, t, sig_step);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int decide_pick_launch(const RouteArgs* args, int N,
+                                  const void* fids, const void* pairs,
+                                  void* k_out, void* path_out, void* stream) {
+  const int blocks = (N + PICK_THREADS - 1) / PICK_THREADS;
+  decide_pick_kernel<<<blocks, PICK_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int4*)args->records, N, (const long long*)fids,
+      (const int*)pairs, (int*)k_out, (int*)path_out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int decide_launch(const RouteArgs* args, int N, const void* fids,
                              const void* pairs, void* k_out, void* path_out,
                              int t, int sig_step, void* stream) {
-  const int blocks = (N + WARPS - 1) / WARPS;
-  decide_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      *args, N, (const long long*)fids, (const int*)pairs, (int*)k_out,
-      (int*)path_out, t, sig_step);
-  return (int)cudaGetLastError();
+  const int err = decide_pairs_launch(args, t, sig_step, stream);
+  if (err != 0) return err;
+  return decide_pick_launch(args, N, fids, pairs, k_out, path_out, stream);
 }

@@ -16,8 +16,11 @@ design does about that. Three entries share its decision:
   ``"sweep"`` with each arrival's law read from its pair's code
   (``SimArrays.pair_policy``, a merged sweep world).
 - ``decide``: the failover's and the re-decision's decisions for N
-  given (hash key, pair) and a ring step for the congestion view, one
-  launch returning ``(k_idx, chosen)``.
+  given (hash key, pair) and a ring step for the congestion view,
+  returning ``(k_idx, chosen)``: one call launches two kernels, a record
+  per pair of the run into the launcher's table (``decide_pairs``), then
+  a decision per thread from its pair's record (``decide_pick``).
+  ``unpack_records`` reads that table on the host.
 
 ``RouteArrivals`` is the launcher of a run for the last two: it checks
 the fixed tensors once; a route step passes only ``t``, the queues and
@@ -42,10 +45,14 @@ from repro_torch.kernels import build, ref
 
 P_MAX = 8          # switch candidate sets are m <= 8 (paper §4)
 H_MAX = 8          # hops a path may have in the route kernel
+RECORD_WORDS = 16  # int32 words of a pair's record in decide's table
+PATH_BITS = 28     # a record's path word: the path id low, a header nibble high
 # every law of netsim.engine.POLICY_CODES, with its code
 POLICY_CODES = {"lcmp": 0, "lcmp_w": 1, "ecmp": 2, "ucmp": 3, "wcmp": 4,
                 "redte": 5, "fatpaths": 6, "amp": 7, "lcmp_r": 8,
                 "matchrdma": 9}
+# the laws whose record holds a candidate mask, not a slot order
+MASK_LAWS = ("ecmp", "ucmp", "fatpaths", "amp", "matchrdma")
 # (name, dtype) of the link queues the route reads and the per-flow
 # fields it writes, in the order of ``StepTensors`` in the source
 _STEP_TENSORS = (("q_bytes", torch.float32),
@@ -110,13 +117,36 @@ class _RouteArgs(ctypes.Structure):
         + [("hist_len", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
             "A", "K", "H", "policy", "alpha", "beta", "keep_num",
-            "cong_fallback", "dt_us")])
+            "cong_fallback", "dt_us")]
+        + [("records", ctypes.c_void_p), ("npair", ctypes.c_int)])
 
 
 class _StepTensors(ctypes.Structure):
     """``StepTensors`` of ``csrc/lcmp_decide.cu``: the pointers a step
     passes."""
     _fields_ = [(name, ctypes.c_void_p) for name, _ in _STEP_TENSORS]
+
+
+def unpack_records(table: torch.Tensor) -> dict:
+    """``decide``'s record table (NPAIR, ``RECORD_WORDS``) int32, as the
+    kernel packs it (``csrc/lcmp_decide.cu``), unpacked into the fields of
+    ``ref.decide_records_ref``: ``law``, ``n`` and ``mask`` (NPAIR,),
+    ``order``, ``cum`` and ``path`` (NPAIR, 8), all int32. The header's
+    24 low bits are the slot order (3 bits a rank) or, for
+    ``MASK_LAWS``, the mask; the other field is 0."""
+    w = table.to(torch.int64) & 0xFFFFFFFF
+    hdr = sum(((w[:, k] >> PATH_BITS) & 15) << (4 * k) for k in range(P_MAX))
+    law, sel = hdr >> 28, hdr & 0xFFFFFF
+    masked = torch.isin(law, torch.tensor([POLICY_CODES[p] for p in MASK_LAWS],
+                                          device=table.device))
+    shift = 3 * torch.arange(P_MAX, device=table.device)
+    low = w[:, :P_MAX] & ((1 << PATH_BITS) - 1)
+    half = 1 << (PATH_BITS - 1)
+    out = dict(law=law, n=(hdr >> 24) & 15,
+               order=torch.where(masked[:, None], 0, (sel[:, None] >> shift) & 7),
+               mask=torch.where(masked, sel, 0), cum=table[:, P_MAX:],
+               path=(low ^ half) - half)
+    return {k: v.to(torch.int32) for k, v in out.items()}
 
 
 def _need(x: torch.Tensor, name: str, dtype, shape, dev: torch.device) -> None:
@@ -147,10 +177,12 @@ class RouteArrivals:
     queues and the eight per-flow fields of ``st``, each checked cheaply
     the first time the launcher sees it (a tensor must not be resized
     while the launcher may see it again), and the kernel writes those
-    fields IN PLACE. ``decide(t, fid, pair, sig_step)`` is one launch of
-    the ``decide`` entry. Under ``policy="sweep"`` each decision takes
-    the law ``ar.pair_policy`` holds for its pair, checked once to be
-    one of ``sweep_policies``.
+    fields IN PLACE. ``decide(t, fid, pair, sig_step)`` is one call of
+    the ``decide`` entry: its two kernels, the first of which rewrites
+    ``records``, the run's table of one record per pair (so decisions of
+    one launcher go on one stream). Under ``policy="sweep"`` each decision
+    takes the law ``ar.pair_policy`` holds for its pair, checked once to
+    be one of ``sweep_policies``.
     """
 
     def __init__(self, ar, st, policy: str, select: SelectParams,
@@ -199,6 +231,9 @@ class RouteArrivals:
         _within(ar.f_pair, "f_pair", 0, NPAIR)
         _within(ar.pair_cand, "pair_cand", -1, NP)
         _within(ar.path_links, "path_links", -1, L)
+        if NP > 1 << (PATH_BITS - 1):
+            raise ValueError(f"route_arrivals: decide's table holds path ids "
+                             f"below 2**{PATH_BITS - 1}, got {NP} paths")
         pair_policy = 0
         if policy == "sweep":
             codes = ar.pair_policy
@@ -216,6 +251,8 @@ class RouteArrivals:
                                  f"{sorted(got - swept)} outside the swept "
                                  f"{tuple(sweep_policies)}")
             pair_policy = codes.data_ptr()
+        self.records = torch.empty((NPAIR, RECORD_WORDS), dtype=torch.int32,
+                                   device=dev)
         self.args = _RouteArgs(
             ar.arrivals.data_ptr(), ar.f_pair.data_ptr(), ar.f_id.data_ptr(),
             ar.f_size.data_ptr(), ar.pair_cand.data_ptr(),
@@ -227,7 +264,8 @@ class RouteArrivals:
             ar.link_cap_gbps.data_ptr(), ar.link_deg_step.data_ptr(),
             ar.link_deg_factor.data_ptr(), st.redte_w.data_ptr(), pair_policy,
             R, A, K, H, POLICY_CODES.get(policy, -1), select.alpha,
-            select.beta, select.keep_num, select.cong_fallback, dt_us)
+            select.beta, select.keep_num, select.cong_fallback, dt_us,
+            self.records.data_ptr(), NPAIR)
         # the tensors whose pointers the struct holds stay alive with it
         self.keep = (ar.arrivals, ar.f_pair, ar.f_id, ar.f_size, ar.pair_cand,
                      ar.path_links, ar.path_sig_delay, ar.path_prop,
@@ -240,6 +278,7 @@ class RouteArrivals:
         self.args_ref = ctypes.byref(self.args)
         lib = build.load("lcmp_decide")
         self.launcher, self.decider = lib.route_arrivals_launch, lib.decide_launch
+        self.stage_launchers = (lib.decide_pairs_launch, lib.decide_pick_launch)
         self.step = _StepTensors()
         self.step_ref = ctypes.byref(self.step)
         self.seen = [None] * len(_STEP_TENSORS)
@@ -276,48 +315,72 @@ class RouteArrivals:
             _need(x, name, dtype, (n,), torch.device("cuda", self.dev_index))
         return x.data_ptr()
 
+    def _launch(self, fn, *args) -> int:
+        """``fn(*args, stream)`` on the launcher's card and its current
+        stream, entering the card's context only when it is not current."""
+        if torch.cuda.current_device() == self.dev_index:
+            return fn(*args, build.raw_stream(self.dev_index))
+        with torch.cuda.device(self.dev_index):
+            return fn(*args, build.raw_stream(self.dev_index))
+
     def __call__(self, t: int, st) -> None:
         if not 0 <= t < self.T:
             raise ValueError(f"route_arrivals: step {t} outside [0, {self.T})")
         self._bind_step(st)
-        if torch.cuda.current_device() == self.dev_index:
-            err = self.launcher(self.args_ref, self.step_ref, t,
-                                build.raw_stream(self.dev_index))
-        else:
-            with torch.cuda.device(self.dev_index):
-                err = self.launcher(self.args_ref, self.step_ref, t,
-                                    build.raw_stream(self.dev_index))
-        build.check(err, "route_arrivals")
+        build.check(self._launch(self.launcher, self.args_ref, self.step_ref, t),
+                    "route_arrivals")
         route_arrivals.launches += 1
 
-    def decide(self, t: int, fid: torch.Tensor, pair: torch.Tensor,
-               sig_step: int):
-        """One ``decide`` launch for N decisions: hash keys ``fid`` (N,)
-        int64, pairs ``pair`` (N,) int32; the congestion view reads ring
-        step ``sig_step`` (may be negative), ``matchrdma``'s degrade
-        schedule applies at ``t``. Returns ``(k_idx, chosen)``, (N,) int32
-        each, -1 where no candidate is valid."""
-        dev = torch.device("cuda", self.dev_index)
+    def _decisions(self, t: int, fid: torch.Tensor, pair: torch.Tensor,
+                   sig_step: int) -> torch.Tensor:
+        """Check a decision's inputs; returns the (2, N) int32 output."""
         N = fid.shape[0] if fid.dim() == 1 else -1
-        _need(fid, "decide fid", torch.int64, (N,), dev)
+        self._ptr(fid, "decide fid", torch.int64, N)
         if pair is not self.f_pair:     # the engine's pairs were checked
-            _need(pair, "decide pair", torch.int32, (N,), dev)
+            self._ptr(pair, "decide pair", torch.int32, N)
             _within(pair, "decide pair", 0, self.NPAIR)
         if not (-(1 << 31) <= min(t, sig_step) <= max(t, sig_step) < 1 << 31):
             raise ValueError(f"decide: t and sig_step must fit int32, got "
                              f"t={t}, sig_step={sig_step}")
-        k_idx = torch.empty((N,), dtype=torch.int32, device=dev)
-        chosen = torch.empty((N,), dtype=torch.int32, device=dev)
-        if N == 0:                      # nothing to decide: no launch
+        return torch.empty((2, N), dtype=torch.int32, device=fid.device)
+
+    def decide(self, t: int, fid: torch.Tensor, pair: torch.Tensor,
+               sig_step: int):
+        """One ``decide`` call for N decisions: hash keys ``fid`` (N,)
+        int64, pairs ``pair`` (N,) int32; the congestion view reads ring
+        step ``sig_step`` (may be negative), ``matchrdma``'s degrade
+        schedule applies at ``t``. Returns ``(k_idx, chosen)``, (N,) int32
+        each, -1 where no candidate is valid."""
+        out = self._decisions(t, fid, pair, sig_step)
+        k_idx, chosen = out
+        if out.shape[1] == 0:           # nothing to decide: no launch
             return k_idx, chosen
-        with torch.cuda.device(self.dev_index):
-            err = self.decider(self.args_ref, N, fid.data_ptr(),
-                               pair.data_ptr(), k_idx.data_ptr(),
-                               chosen.data_ptr(), t, sig_step,
-                               build.raw_stream(self.dev_index))
-        build.check(err, "decide")
+        build.check(self._launch(self.decider, self.args_ref, out.shape[1],
+                                 fid.data_ptr(), pair.data_ptr(),
+                                 k_idx.data_ptr(), chosen.data_ptr(), t,
+                                 sig_step), "decide")
         decide.launches += 1
         return k_idx, chosen
+
+    def decide_stages(self, t: int, fid: torch.Tensor, pair: torch.Tensor,
+                      sig_step: int):
+        """The two kernels of ``decide(t, fid, pair, sig_step)`` as two
+        callables that launch one each, for timing them apart: the pairs'
+        records, then the N picks from the table as it stands. Not
+        counted as ``decide`` launches."""
+        out = self._decisions(t, fid, pair, sig_step)
+        pairs_fn, pick_fn = self.stage_launchers
+
+        def pairs():
+            build.check(self._launch(pairs_fn, self.args_ref, t, sig_step),
+                        "decide_pairs")
+
+        def pick():                     # holds fid, pair and out alive
+            build.check(self._launch(pick_fn, self.args_ref, out.shape[1],
+                                     fid.data_ptr(), pair.data_ptr(),
+                                     out[0].data_ptr(), out[1].data_ptr()),
+                        "decide_pick")
+        return pairs, pick
 
 
 def route_arrivals(t: int, st, ar, policy: str,
@@ -352,7 +415,8 @@ def decide(t: int, fid: torch.Tensor, pair: torch.Tensor, st, ar,
     ``fid`` (N,) int64, pairs ``pair`` (N,) int32), the congestion view
     read at ring step ``sig_step`` (default ``t``): the plain version on
     the CPU. On the card a run's ``RouteArrivals.decide`` launches the
-    kernel (``netsim.engine.StepLaunchers.decide``); this raises there."""
+    two kernels (``netsim.engine.StepLaunchers.decide``); this raises
+    there."""
     dev = ar.pair_cand.device
     if dev.type == "cpu":
         sig = t if sig_step is None else sig_step

@@ -11,7 +11,9 @@ the fluid engine's fused phases, ``monitor_tick_ref`` and
 ``decide_ref``, with the candidate view and the policy-dispatched law
 (``law_choice``, the reference's ``engine.decide._choice``, and
 ``pair_law_choice``, its per-pair dispatch for a merged sweep world)
-they share.
+they share. ``decide_records_ref`` and ``decide_pick_ref`` are the plain
+versions of the card's two ``decide`` kernels, the per-pair and the
+per-decision half of every law, which compose to ``decide_ref``.
 They take the engine's ``SimState`` and ``SimArrays`` by field name and
 use the ring width of ``hist_c``.
 """
@@ -194,6 +196,179 @@ def decide_ref(t: int, fid: torch.Tensor, pair: torch.Tensor, st, ar,
                             fid, pair, cand, hop, valid, st, ar, select,
                             sweep_policies)
     return k_idx, chosen_path(cand, k_idx)
+
+
+# decide's factorization: a record per pair, then a pick per decision
+RECORD_SLOTS = 8                    # a record's slots (the kernels' P_MAX)
+# the laws by the per-decision half they take (``decide_pick_ref``)
+RANK_LAWS = ("lcmp", "lcmp_r")
+WEIGHTED_LAWS = ("lcmp_w", "wcmp", "redte")
+NTH_LAWS = ("ecmp", "amp", "fatpaths")
+ROTATE_LAWS = ("ucmp", "matchrdma")
+
+
+def _slots(x: torch.Tensor, fill) -> torch.Tensor:
+    """(N, K) -> (N, ``RECORD_SLOTS``), padded with ``fill``."""
+    pad = x.new_full((x.shape[0], RECORD_SLOTS - x.shape[1]), fill)
+    return torch.cat([x, pad], 1)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """(N, 8) bool -> (N,) int32 mask, slot k at bit k."""
+    shift = torch.arange(RECORD_SLOTS, dtype=torch.int32, device=x.device)
+    return (x.to(torch.int32) << shift).sum(1).to(torch.int32)
+
+
+def _law_records(policy: str, t: int, sig_step: int, pair: torch.Tensor,
+                 cand: torch.Tensor, hop: torch.Tensor, valid: torch.Tensor,
+                 st, ar, select: SelectParams) -> dict:
+    """The per-pair half of ``policy``'s law for the pairs ``pair``, with
+    their ``candidate_view`` (see ``decide_records_ref``)."""
+    if policy not in LAWS:
+        raise ValueError(f"no law for policy {policy!r}; laws: {LAWS}")
+    N, K = cand.shape
+    dev = cand.device
+    slot = torch.arange(RECORD_SLOTS, dtype=torch.int32, device=dev)
+    cpad = torch.clamp_min(cand, 0)
+    m = valid.sum(1).to(torch.int32)
+    zero = torch.zeros(N, dtype=torch.int32, device=dev)
+    n, mask = zero, zero
+    order = torch.zeros((N, RECORD_SLOTS), dtype=torch.int32, device=dev)
+    cum = torch.zeros_like(order)
+    capg = torch.where(cand >= 0, ar.path_cap_gbps[cpad], 0)
+    if policy in VIEW_LAWS:
+        c_cong = path_cong_view(st.hist_c, hop, ar.path_sig_delay[cpad],
+                                sig_step)
+    if policy in ("lcmp", "lcmp_r", "lcmp_w"):
+        cost = torch.where(valid, select.alpha * st.c_path[cpad]
+                           + select.beta * c_cong, selmod.COST_INVALID)
+        key = _slots(cost, selmod.COST_INVALID) * RECORD_SLOTS + slot
+        order = torch.argsort(key, dim=1).to(torch.int32)   # distinct keys
+        keep = torch.clamp_min(torch.div(m + select.keep_num - 1,
+                                         select.keep_num, rounding_mode="floor"), 1)
+        low = torch.where(valid, c_cong, selmod.SCORE_MAX + 1).amin(1)
+        n = torch.where(m == 0, 0, torch.where(low >= select.cong_fallback,
+                                               1, keep)).to(torch.int32)
+        if policy == "lcmp_w":      # the kept ranks' capacities, max(w, 1)
+            kept = slot[None, :] < n[:, None]
+            w = torch.where(kept, torch.clamp_min(
+                _slots(capg, 0).gather(1, order.long()), 1), 0)
+            cum = torch.where(kept, torch.cumsum(w, 1), 0).to(torch.int32)
+    elif policy in ("ecmp", "amp"):
+        mask, n = _bits(_slots(valid, False)), m
+    elif policy in ("ucmp", "matchrdma"):
+        if policy == "ucmp":
+            cost = torch.where(valid, torch.div(
+                1_000_000, torch.clamp_min(capg, 1), rounding_mode="floor"),
+                bl.BIG)
+        else:                       # as law_choice's matchrdma
+            eff = ar.link_cap_gbps * torch.where(t >= ar.link_deg_step,
+                                                 ar.link_deg_factor, 1.0)
+            bneck = torch.where(hop >= 0, eff[torch.clamp_min(hop, 0)],
+                                1e9).amin(-1)
+            avail = bneck * (256 - c_cong).to(torch.float32)
+            cost = torch.where(valid, -torch.clamp_max(avail, 1e9).to(
+                torch.int32), bl.BIG)
+        least = cost.amin(1, keepdim=True)
+        mask = _bits(_slots(valid & (cost == least), False))
+        n = torch.full_like(zero, K)
+    elif policy in ("wcmp", "redte"):
+        x = capg if policy == "wcmp" else st.redte_w[pair]
+        w = torch.where(valid, torch.clamp_min(x, 1), 0)
+        cum = _slots(torch.cumsum(w, 1).to(torch.int32), 0)
+        order = slot.expand(N, RECORD_SLOTS).clone()
+        n = torch.full_like(zero, K)
+    else:                           # fatpaths
+        plen = torch.where(valid, ar.path_len[cpad], bl.BIG)
+        layer0 = valid & (plen == plen.amin(1, keepdim=True))
+        spill = torch.where(layer0, c_cong, bl.BIG).amin(1) >= select.cong_fallback
+        chosen = torch.where(spill[:, None], valid, layer0)
+        mask, n = _bits(_slots(chosen, False)), chosen.sum(1).to(torch.int32)
+    return dict(law=torch.full_like(zero, LAWS.index(policy)), n=n,
+                order=order, mask=mask, cum=cum, path=_slots(cand, -1))
+
+
+def decide_records_ref(t: int, sig_step: int, st, ar, policy: str,
+                       select: SelectParams = SelectParams(),
+                       sweep_policies: tuple = LAWS) -> dict:
+    """The per-pair half of ``decide_ref``: every pair's record, as the
+    ``decide`` kernel's first stage writes it, unpacked (int32 tensors;
+    ``kernels.lcmp_decide.unpack_records`` reads the kernel's table into
+    the same fields). ``law`` and ``n`` (NPAIR,): the law's code and the
+    modulus of its pick (lcmp, lcmp_r: the kept ranks, 1 under the
+    congestion fallback; lcmp_w: the weighted kept ranks, likewise;
+    wcmp, redte, ucmp, matchrdma: K; ecmp, amp, fatpaths: the mask's
+    popcount; 0 when no candidate is valid, or for a law not swept);
+    ``order`` (NPAIR, 8): the slot of each rank (lcmp family by cost,
+    wcmp and redte the identity; 0 for the mask laws); ``mask`` (NPAIR,):
+    the slots ecmp, amp and fatpaths hash over, or ucmp's and matchrdma's
+    slots of least cost (0 for the others); ``cum`` (NPAIR, 8): the
+    cumulative weights of lcmp_w's kept ranks and of wcmp's and redte's
+    slots (0 past ``n`` and for the others); ``path`` (NPAIR, 8): the
+    candidates, -1 past K. The view reads ring step ``sig_step``;
+    ``matchrdma``'s degrade applies at ``t``. Under ``"sweep"`` each
+    pair's record is its own law's."""
+    NPAIR = ar.pair_cand.shape[0]
+    pair = torch.arange(NPAIR, device=ar.pair_cand.device)
+    cand, hop, valid = candidate_view(pair, st, ar)
+    args = (t, sig_step, pair, cand, hop, valid, st, ar, select)
+    if policy != "sweep":
+        return _law_records(policy, *args)
+    code = ar.pair_policy
+    zero = torch.zeros_like(code)
+    zeros = torch.zeros((NPAIR, RECORD_SLOTS), dtype=torch.int32,
+                        device=code.device)
+    out = dict(law=code, n=zero, order=zeros, mask=zero, cum=zeros,
+               path=_slots(cand, -1))
+    for p in sweep_policies:
+        rec = _law_records(p, *args)
+        rows = code == LAWS.index(p)
+        out = {k: torch.where(rows.reshape(-1, *[1] * (v.dim() - 1)), rec[k], v)
+               for k, v in out.items()}
+    return out
+
+
+def decide_pick_ref(records: dict, fid: torch.Tensor, pair: torch.Tensor):
+    """The per-decision half of ``decide_ref``: ``(k_idx, chosen)`` (N,)
+    int32 of N decisions (hash keys ``fid``, pairs ``pair``) from the
+    pairs' ``decide_records_ref``. Each law reads its key only through
+    ``fmix32(fid)``: rank ``fmix32 % n`` of ``order`` (lcmp, lcmp_r); the
+    count of ``cum`` entries <= ``int32(fmix32 >> 1) % cum[n-1]``, as a
+    rank of ``order`` (lcmp_w, wcmp, redte; -1 when the total is <= 0);
+    the ``fmix32 % n``-th set bit of ``mask`` (ecmp, amp, fatpaths); the
+    first set bit of ``mask`` at or after ``fmix32 % n``, cyclically
+    (ucmp, matchrdma). -1 where ``n`` (or the mask) is 0."""
+    r = {k: v[pair] for k, v in records.items()}
+    law, n, order, mask, cum = (r[k] for k in ("law", "n", "order", "mask",
+                                               "cum"))
+    slot = torch.arange(RECORD_SLOTS, device=law.device)
+    hv = selmod.fmix32(fid)
+    mod = hv % torch.clamp_min(n, 1).to(torch.int64)
+    none = torch.full_like(law, -1)
+
+    def rank_slot(rank):
+        return order.gather(1, rank.to(torch.int64)[:, None])[:, 0]
+
+    k_rank = torch.where(n > 0, rank_slot(mod), -1)
+    total = cum.gather(1, torch.clamp_min(n - 1, 0).to(torch.int64)[:, None])[:, 0]
+    h = (hv >> 1) % torch.clamp_min(total, 1)
+    count = ((cum <= h[:, None]) & (slot[None, :] < n[:, None])).sum(1)
+    k_weighted = torch.where((n > 0) & (total > 0),
+                             rank_slot(torch.clamp_max(count, RECORD_SLOTS - 1)), -1)
+    bits = ((mask[:, None] >> slot) & 1).bool()
+    nth = bits & (torch.cumsum(bits.to(torch.int64), 1) == mod[:, None] + 1)
+    k_nth = torch.where(n > 0, nth.to(torch.int32).argmax(1), -1)
+    after = bits & (slot[None, :] >= mod[:, None])
+    k_rotate = torch.where(mask == 0, -1, torch.where(
+        after.any(1), after.to(torch.int32).argmax(1),
+        bits.to(torch.int32).argmax(1)))
+    k_idx = none
+    for laws, k in ((RANK_LAWS, k_rank), (WEIGHTED_LAWS, k_weighted),
+                    (NTH_LAWS, k_nth), (ROTATE_LAWS, k_rotate)):
+        codes = torch.tensor([LAWS.index(p) for p in laws], device=law.device)
+        k_idx = torch.where(torch.isin(law, codes), k.to(torch.int32), k_idx)
+    chosen = r["path"].gather(1, torch.clamp_min(k_idx, 0).to(torch.int64)[:, None])
+    return k_idx, torch.where(k_idx >= 0, chosen[:, 0], -1)
 
 
 def route_arrivals_ref(t: int, st, ar, policy: str,

@@ -592,8 +592,8 @@ class StepLaunchers:
     """An engine step's kernels on the card, one launcher each for a run:
     ``monitor(t, st)`` and ``route(t, st)`` launch one kernel each and
     return ``st``, whose tensors they update in place; ``decide(t, fid,
-    pair, st, sig_step)`` launches one ``decide`` kernel (failover and
-    re-decision) through the route's launcher. A launcher is built, and
+    pair, st, sig_step)`` makes one ``decide`` call, two kernels
+    (failover and re-decision), through the route's launcher. A launcher is built, and
     its fixed tensors checked, at the first step and again only if the
     state's persistent tensors (registers, ``c_cong``, rings,
     ``link_alive``, ``c_path``, ``redte_w``) are replaced; the step

@@ -18,7 +18,8 @@ trip, refresh, epoch and RedTE steps are known when the run starts, so
 the host branches on ``t`` and the step makes no host sync. On the card
 the monitor tick is one ``kernels.monitor_tick`` launch, the arrival
 routing one ``kernels.route_arrivals`` launch, and each trip step's
-reroute and each epoch's re-decision one ``kernels.decide`` launch,
+reroute and each epoch's re-decision one ``kernels.decide`` call (two
+kernels: the pairs' records, then one pick per decision),
 through launchers ``make_step`` keeps for the run
 (``engine.StepLaunchers``); on the CPU the same phases run their plain
 versions. The reference scans ``make_step`` under ``jax.jit``; here
@@ -55,6 +56,10 @@ def make_step(ar: SimArrays, cfg: SimConfig):
     trips, down = trip_steps(ar, cfg)
     epoch = (max(cfg.redecide_period_us // cfg.dt_us, 1)
              if wants_redecide(cfg) else 0)
+    # the offered-load sum's slots past the links, one per (flow, hop)
+    park = L + torch.arange(ar.f_id.shape[0] * ar.path_links.shape[1],
+                            dtype=torch.int32, device=ar.link_cap.device
+                            ).reshape(-1, ar.path_links.shape[1])
 
     def step(st: SimState, t: int) -> SimState:
         # 0) link trips + lazy failover: flows pinned to a dead path
@@ -76,15 +81,23 @@ def make_step(ar: SimArrays, cfg: SimConfig):
             st = redecide_tick(t, st, ar, cfg, torch.ones_like(st.active),
                                decide)
 
-        # 3) offered load per link (the reference's segment_sum)
+        # 3) offered load per link (the reference's segment_sum). Each
+        # masked contribution (0.0) is parked on its own slot past the
+        # links, so none piles onto link 0. On the card the sum runs in
+        # float64, whose 53 bits hold the sum of up to 512 float32 rates
+        # within a factor 2^20 of each other exactly, so the order in which
+        # index_add_'s atomics add does not show: each run, and each cell
+        # of a merged world, gets the same loads
         pf = st.flow_path
         links_f = ar.path_links[torch.clamp_min(pf, 0)]         # (F,H)
         links_ok = (links_f >= 0) & st.active[:, None] & (pf >= 0)[:, None]
         lidx = torch.clamp_min(links_f, 0)
         contrib = torch.where(links_ok, st.rate[:, None], 0.0)
-        offered = torch.zeros((L,), dtype=torch.float32,
-                              device=contrib.device)
-        offered.index_add_(0, lidx.reshape(-1), contrib.reshape(-1))
+        acc = torch.float64 if contrib.is_cuda else torch.float32
+        offered = torch.zeros((park.numel() + L,), dtype=acc,
+                              device=contrib.device).index_add_(
+            0, torch.where(links_ok, links_f, park).reshape(-1),
+            contrib.reshape(-1).to(acc))[:L].float()
 
         # 4) per-link share factor and queue integration; degradation is
         # silent: flows stay pinned, only CC and the registers react

@@ -32,7 +32,7 @@ injection, the hop loop, flowlet clock, CC, completion, RedTE tick. On
 the card the monitor tick is one ``kernels.monitor_tick`` launch and the
 arrival routing one ``kernels.route_arrivals`` launch a slot, and each
 trip step's reroute and each slot's flowlet re-decision (while the plane
-is armed) one ``kernels.decide`` launch, through the run's
+is armed) one ``kernels.decide`` call (two kernels), through the run's
 ``engine.StepLaunchers``; on the CPU the same phases run their plain
 versions. The data plane is eager PyTorch.
 

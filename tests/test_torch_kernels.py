@@ -539,6 +539,36 @@ def test_cuda_decide_a_law_per_pair_matches_plain(cuda, cs, merged, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["wan2000", "bulk", "fig5 merged"])
+def test_cuda_decide_records_match_plain(cuda, cs, request, shape):
+    # decide's first kernel: the per-pair table, unpacked on the host,
+    # equals decide_records_ref field for field (a law per pair on the
+    # merged world), at the failover's read, a mid-run step, salted keys
+    from repro_torch.core.select import SelectParams
+    cases = [(0, -1, False), (900, 899, False), (900, 900, True)]
+    if shape == "bulk":
+        ar, st = cs.bulk_route_world(cuda)
+        policy, select, cases = "lcmp_w", SelectParams(), [(2, 1, False),
+                                                           (0, -1, False),
+                                                           (3, 3, True)]
+    elif shape == "wan2000":
+        from repro_torch.netsim import experiment as pexp
+        from repro_torch.netsim import fluid
+        _, table, flows, cfg = pexp.build_experiment(
+            pexp.ExpSpec(**cs.CHECK_WORLDS["wan2000"], policy="redte"))
+        arrs, st = fluid.build(table, flows, cfg, device=cuda)
+        ar, st = cs.world_state(cuda, dict(arrs=arrs, state=st), "dead", seed=7)
+        policy, select = "redte", cfg.select
+    else:
+        merged = request.getfixturevalue("merged")
+        ar, st = cs.world_state(cuda, merged, "dead", seed=13)
+        ar, policy, select = cs.mixed_laws(ar, 5), "sweep", merged["cfg"].select
+    r = cs.check_decide(cuda, ar, st, policy, f"{shape} records", 0, select,
+                        cases)
+    assert r["table_err"] == 0 and r["max_abs_err"] == 0 and r["decided"] > 0
+
+
+@pytest.mark.cuda
 def test_cuda_a_law_per_pair_bulk_matches_plain(cuda, cs):
     from repro_torch.core.select import SelectParams
     ar, st = cs.bulk_route_world(cuda)
