@@ -62,17 +62,46 @@ the script exits non-zero and prints no result line. Phases:
    the reference's (the paper's 0.95 bar is reached at the
    quick scale only, as in the reference); LCMP below ECMP on testbed8
    under both engines;
-9. device_vs_cpu: testbed8 lcmp, testbed8_failover lcmp (a trip at
+9. sanitize: the physics-invariant sanitizer at tests/test_sanitize.py's
+   spec (testbed8, load 0.7, 40 ms) on both engines: a checked run's
+   final state equals a checks-off run's bit for bit; neither makes a
+   host sync inside its step loop after the set-up step 0
+   (``torch.cuda.set_sync_debug_mode("error")``), and a checked run reads
+   its checks once, at its end; every seeded bug of
+   ``tests/torch_mutations.py`` fires under its own name on both
+   engines, ``signal_causality`` through a negated ``path_sig_delay``
+   and ``pfc_lossless`` through a patched ``pfc_gate`` (packet,
+   ``pairs="all"``, a 2e5-byte buffer); the checked wall time of
+   ``RUNS["testbed8/lcmp"]`` and ``PACKET_RUNS["packet/testbed8/lcmp"]``
+   beside phase run's unchecked time, with the same numbers;
+10. cosim: fig_training's design point (the degraded wan2000 at load
+   0.7, bg_load 0.15, seed 9, 400 ms, qwen3-4b and gemma2-9b x ecmp,
+   wcmp, fatpaths, matchrdma, lcmp x both engines: 20 cells, two merged
+   groups) through ``run_sweep``: one ``monitor_tick`` and one
+   ``route_arrivals`` launch a step per group and no ``decide``; each
+   cell's strict iteration p50 and p99 against ``COSIM_REFERENCE`` (3%,
+   10%; infinite in both or neither), iterations done equal, completions
+   within 1% of offered; the LCMP ordering flag of each (engine, model)
+   equal to the reference's;
+11. switch: the switch object model (``core.switchd``: 48 ports, 8
+   candidates, a 65,536-slot flow cache) over 200 ticks of random queues
+   and 4,096 arrivals (half established), a port death at tick 100 and
+   GC every 50 ticks, through the standalone ``cong_update`` and
+   ``lcmp_decide`` entries; choices, new-flow flags, registers and the
+   whole cache equal to the same run through the plain versions on the
+   card, bit for bit; a colliding batch's cache equal to the CPU's;
+   more than 8 candidates refused;
+12. device_vs_cpu: testbed8 lcmp, testbed8_failover lcmp (a trip at
    50 ms), a 3-cell sweep group, and the packet engine's testbed8 lcmp
    and failover runs on the card and on the CPU (plain versions) must
    route the same flows the same way;
-10. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
+13. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
    cut to 4 layers, one 4096-token sequence per pod, 2 pods on the card):
    3 steps with the int8 wire, then 1 f32-wire step from the state after
    step 2; the int8 gradient against the exact pod mean block by block,
    the route binding and wire bytes, the qsr launches, the two paths'
    parameters against AdamW's bound; time split, tokens/s, peak memory;
-11. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
+14. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
    and on the CPU from the same weights and batch;
 then the ``kernels`` summary line and the result line. Phase 3 also
 holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
@@ -82,6 +111,7 @@ wire-leg sizes.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import inspect
 import itertools
 import json
@@ -90,6 +120,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -275,6 +306,54 @@ FIDELITY_PEARSON = {"fidelity": 0.8983, "fidelity_quick": 0.9631}
 # paper's testbed-vs-NS-3 bar, which the reference reaches at the quick
 # scale only
 PEARSON_BAND, PAPER_PEARSON = 0.02, 0.95
+# phase sanitize: tests/test_sanitize.py's spec (396 flows, 400 steps)
+SANITIZE = dict(topology="testbed8", load=0.7, duration_us=40_000)
+# phase cosim: fig_training's design point at its default scale
+# (benchmarks/figures.py fig_training: the degraded wan2000, bg_load 0.15,
+# both models, all five policies, both engines; the figure's other 60
+# cells, at bg_load 0.1 or on the healthy haul, are not run here)
+COSIM = dict(topology="wan2000:dcs=8,segs=2,chords=4,deg_ms=133,"
+             "deg_factor=0.1", load=0.7, bg_load=0.15, seed=9, pairs="main",
+             cap_scale=0.0625, duration_us=400_000, cosim_iters=6)
+COSIM_MODELS = ("qwen3-4b", "gemma2-9b")
+COSIM_POLICIES = ("ecmp", "wcmp", "fatpaths", "matchrdma", "lcmp")
+# the JAX package's run_sweep on those cells (strict iteration p50 and p99
+# in ms, iterations done of 6, completed, offered), computed on the CPU and
+# pinned by tests/test_torch_cosim_reference.py, with each (engine, model)'s
+# LCMP ordering flag (lcmp at or below every baseline in both
+# percentiles, lcmp's completions above COMPLETION_FLOOR): False in all
+# four in the reference itself
+COSIM_REFERENCE = {
+    "cosim/fluid/qwen3-4b/ecmp": (206.3, 362.2, 6, 3620, 3626),
+    "cosim/fluid/qwen3-4b/wcmp": (393.3, 504.0, 6, 3619, 3626),
+    "cosim/fluid/qwen3-4b/fatpaths": (206.3, 362.2, 6, 3620, 3626),
+    "cosim/fluid/qwen3-4b/matchrdma": (81.79, 711.9, 6, 3622, 3626),
+    "cosim/fluid/qwen3-4b/lcmp": (98.20, 368.6, 6, 3621, 3626),
+    "cosim/fluid/gemma2-9b/ecmp": (242.3, 380.5, 6, 3656, 3662),
+    "cosim/fluid/gemma2-9b/wcmp": (390.4, 503.6, 6, 3655, 3662),
+    "cosim/fluid/gemma2-9b/fatpaths": (242.3, 380.5, 6, 3656, 3662),
+    "cosim/fluid/gemma2-9b/matchrdma": (88.23, 696.6, 6, 3658, 3662),
+    "cosim/fluid/gemma2-9b/lcmp": (107.1, 264.9, 6, 3657, 3662),
+    "cosim/packet/qwen3-4b/ecmp": (76.73, 397.8, 6, 3625, 3626),
+    "cosim/packet/qwen3-4b/wcmp": (430.9, 630.9, 6, 3626, 3626),
+    "cosim/packet/qwen3-4b/fatpaths": (76.73, 397.8, 6, 3625, 3626),
+    "cosim/packet/qwen3-4b/matchrdma": (59.73, 93.07, 6, 3626, 3626),
+    "cosim/packet/qwen3-4b/lcmp": (73.73, 305.1, 6, 3626, 3626),
+    "cosim/packet/gemma2-9b/ecmp": (264.9, 406.3, 6, 3661, 3662),
+    "cosim/packet/gemma2-9b/wcmp": (431.9, 631.9, 6, 3662, 3662),
+    "cosim/packet/gemma2-9b/fatpaths": (264.9, 406.3, 6, 3661, 3662),
+    "cosim/packet/gemma2-9b/matchrdma": (59.73, 92.67, 6, 3662, 3662),
+    "cosim/packet/gemma2-9b/lcmp": (61.40, 307.5, 6, 3662, 3662)}
+COSIM_ORDERING = {("fluid", "qwen3-4b"): False, ("fluid", "gemma2-9b"): False,
+                  ("packet", "qwen3-4b"): False,
+                  ("packet", "gemma2-9b"): False}
+# benchmarks/figures.py COMPLETION_FLOOR, copied
+COMPLETION_FLOOR = 0.99
+# phase switch: paper §4's storage-budget switch (48 ports,
+# tests/test_core_switch.py) with 8 candidates and a 65,536-slot cache;
+# ticks 100 us apart, GC every 50 ticks at a 2 ms idle timeout
+SWITCH = dict(ports=48, cands=8, capacity=1 << 16, ticks=200, batch=4096,
+              dead_tick=100, gc_every=50, idle_timeout_us=2_000, seed=18)
 # every law of the port's route and decide entries (engine.POLICY_CODES
 # but the sweep), and the laws that read the delayed congestion view
 LAWS = ("lcmp", "lcmp_w", "ecmp", "ucmp", "wcmp", "redte", "fatpaths", "amp",
@@ -365,6 +444,31 @@ def fidelity_cells(grid: str = "fidelity") -> list:
                             if pexp.ExpSpec(**rk) == pexp.ExpSpec(**kw)), None)
                 out.append((f"{grid}/{scen}/{pol}/{eng}", kw, run))
     return out
+
+
+def cosim_cells() -> list:
+    """``(name, ExpSpec fields)`` of each cell of phase cosim."""
+    return [(f"cosim/{e}/{m}/{p}",
+             dict(COSIM, engine=e, cosim_model=m, policy=p))
+            for e in ("fluid", "packet") for m in COSIM_MODELS
+            for p in COSIM_POLICIES]
+
+
+def cosim_orderings(numbers: dict) -> dict:
+    """fig_training's ordering flag per (engine, model) from each cell's
+    ``(p50, p99, iters_done, completed, offered)``: lcmp's strict
+    iteration p50 and p99 at or below every baseline's, and lcmp's
+    completions at or above ``COMPLETION_FLOOR``."""
+    flags = {}
+    for e in ("fluid", "packet"):
+        for m in COSIM_MODELS:
+            def cell(p):
+                return numbers[f"cosim/{e}/{m}/{p}"]
+            lc = cell("lcmp")
+            flags[(e, m)] = (lc[3] / lc[4] >= COMPLETION_FLOOR) and all(
+                lc[0] <= cell(p)[0] and lc[1] <= cell(p)[1]
+                for p in COSIM_POLICIES if p != "lcmp")
+    return flags
 
 
 def log_pearson(fluid: list, packet: list) -> float:
@@ -1706,6 +1810,365 @@ def phase_packet_sweep(dev, packet_runs: dict) -> dict:
             for grid in FIDELITY_DURATION}
 
 
+def mutations():
+    """The seeded-bug corpus of the CPU tests (``tests/torch_mutations.py``)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    try:
+        import torch_mutations
+    finally:
+        sys.path.remove(os.path.join(HERE, "tests"))
+    return torch_mutations.MUTATIONS
+
+
+def state_tensors(st) -> dict:
+    """Every tensor of an engine state by name, the registers flattened."""
+    out = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = v
+        else:
+            out.update({f"{f.name}.{g.name}": getattr(v, g.name)
+                        for g in dataclasses.fields(v)})
+    return out
+
+
+def sanitize_run(dev, engine_name: str, checks: bool, mutation=None,
+                 sync_check: bool = False):
+    """One run at ``SANITIZE`` through the engine's step; returns
+    ``(final state, first invariant error or None, syncs at the end)``.
+    With ``sync_check`` steps 1.. run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (step 0 builds the run's
+    launchers, whose set-up checks read index ranges back) and the
+    checked run's final read counts its synchronizing calls."""
+    from repro_torch.netsim import engine, sanitize
+    from repro_torch.netsim import experiment as pexp
+    spec = pexp.ExpSpec(engine=engine_name, checks=int(checks), **SANITIZE)
+    _, table, flows, cfg = pexp.build_experiment(spec)
+    mod = engine.get_engine(engine_name)
+    arrs, st = mod.build(table, flows, cfg, device=dev)
+    sanitize._MUTATION = mutation
+    err, syncs = None, None
+    try:
+        with torch.inference_mode():
+            step = mod.make_step(arrs, cfg)
+            st = step(st, 0)
+            torch.cuda.synchronize()
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for t in range(1, cfg.num_steps):
+                    st = step(st, t)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if step.checker is not None:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        step.checker.throw()
+                    except sanitize.InvariantError as e:
+                        err = e
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                syncs = sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        sanitize._MUTATION = None
+    torch.cuda.synchronize()
+    return st, err, syncs
+
+
+def phase_sanitize(dev, runs: dict, packet_runs: dict) -> dict:
+    """Phase sanitize (see the module docstring)."""
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import engine, packet, sanitize
+    from repro_torch.netsim import experiment as pexp
+    out = {"phase": "sanitize", "spec": SANITIZE}
+    for eng in ("fluid", "packet"):
+        t0 = time.perf_counter()
+        on, err, syncs = sanitize_run(dev, eng, True, sync_check=True)
+        t1 = time.perf_counter()
+        off, _, _ = sanitize_run(dev, eng, False, sync_check=True)
+        t2 = time.perf_counter()
+        a, b = state_tensors(on), state_tensors(off)
+        differ = [n for n in a if not torch.equal(a[n], b[n])]
+        out[eng] = {"checked_error": None if err is None else str(err),
+                    "state_fields": len(a), "fields_differing": differ,
+                    "syncs_at_end": syncs, "steps_without_sync": True,
+                    "checked_wall_s": t1 - t0, "unchecked_wall_s": t2 - t1}
+    caught = {}
+    for eng in ("fluid", "packet"):
+        for name, fn in mutations().items():
+            _, err, _ = sanitize_run(dev, eng, True, mutation=fn)
+            caught[f"{eng}/{name}"] = None if err is None else err.invariant
+        # signal_causality: signal delays that would read the future
+        spec = pexp.ExpSpec(engine=eng, checks=1, **SANITIZE)
+        _, table, flows, cfg = pexp.build_experiment(spec)
+        mod = engine.get_engine(eng)
+        arrs, st = mod.build(table, flows, cfg, device=dev)
+        arrs = dataclasses.replace(arrs,
+                                   path_sig_delay=-(arrs.path_sig_delay + 1))
+        try:
+            mod.run(arrs, st, cfg)
+            caught[f"{eng}/signal_causality"] = None
+        except sanitize.InvariantError as e:
+            caught[f"{eng}/signal_causality"] = e.invariant
+    # pfc_lossless: all pairs into a 2e5-byte buffer, where pauses fire
+    spec = pexp.ExpSpec(engine="packet", pairs="all", checks=1, **SANITIZE)
+    _, table, flows, cfg = pexp.build_experiment(spec)
+    cfg = dataclasses.replace(cfg, buffer_bytes=2e5)
+    arrs, st = packet.build(table, flows, cfg, device=dev)
+    final = packet.run(arrs, st, cfg)
+    paused = int(final.hist_pause.sum())
+    gate = sanitize.pfc_gate
+    sanitize.pfc_gate = lambda okh, paused_next: okh
+    try:
+        arrs, st = packet.build(table, flows, cfg, device=dev)
+        packet.run(arrs, st, cfg)
+        caught["packet/pfc_lossless"] = None
+    except sanitize.InvariantError as e:
+        caught["packet/pfc_lossless"] = e.invariant
+    finally:
+        sanitize.pfc_gate = gate
+    out["caught"] = caught
+    out["pfc_paused_link_slots"] = paused
+    # the checked wall time of a main-path run of each engine
+    walls = {}
+    for name, kw in (("testbed8/lcmp", RUNS["testbed8/lcmp"]),
+                     ("packet/testbed8/lcmp",
+                      PACKET_RUNS["packet/testbed8/lcmp"])):
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, _, (_, _, _, cfg, _) = pexp.run_experiment(
+            pexp.ExpSpec(**kw, checks=1), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        plain = {**runs, **packet_runs}[name]
+        walls[name] = {"checked_wall_s": wall,
+                       "unchecked_wall_s": plain["wall_s"],
+                       "checked_over_unchecked": wall / plain["wall_s"],
+                       "p50_p99_completed": [stats.p50, stats.p99,
+                                             stats.completed],
+                       "launches": ops.counts(), "steps": cfg.num_steps,
+                       "agrees": agree(stats, SimpleNamespace(**{
+                           k: plain[k] for k in ("p50", "p99", "completed")}))}
+    out["main_path_runs"] = walls
+    emit(out)
+    for eng in ("fluid", "packet"):
+        r = out[eng]
+        require(r["checked_error"] is None,
+                f"sanitize {eng}: a clean checked run passes")
+        require(not r["fields_differing"], f"sanitize {eng}: checked state "
+                "equals unchecked bit for bit")
+        require(r["syncs_at_end"] is not None and r["syncs_at_end"] <= 1,
+                f"sanitize {eng}: the checked run reads its checks once")
+    for name, r in walls.items():
+        require(r["agrees"], f"sanitize {name}: the checked run scores as "
+                "phase run's unchecked one")
+        require(r["launches"]["monitor_tick"] == r["steps"],
+                f"sanitize {name}: one monitor_tick launch a step")
+    for key, got in caught.items():
+        require(got == key.split("/")[1], f"sanitize: {key} fires under its "
+                f"own name (got {got})")
+    require(paused > 0, "sanitize: PFC pauses fire in the pfc_lossless run")
+    return out
+
+
+def phase_cosim(dev) -> dict:
+    """Phase cosim (see the module docstring)."""
+    from repro_torch import cosim
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import sweep
+    cells = cosim_cells()
+    specs = [pexp.ExpSpec(**kw) for _, kw in cells]
+    steps = {s.engine: sweep.static_key(s)[1].num_steps for s in specs}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        rep = sweep.run_sweep(specs, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.counts()
+    scen, table = pexp.build_world(COSIM["topology"])
+    numbers, rows = {}, []
+    for (name, kw), res in zip(cells, rep.results):
+        plan = cosim.build_plan(res.spec, scen, table)
+        it = cosim.iteration_stats(plan, res.flows, res.final)
+        st = res.stats
+        numbers[name] = (it.pct_strict(50), it.pct_strict(99), it.iters_done,
+                         st.completed, st.offered)
+        rows.append({"cell": name, "iter_p50_ms": it.pct_strict(50),
+                     "iter_p99_ms": it.pct_strict(99),
+                     "iters_done": it.iters_done,
+                     "makespan_ms": it.makespan_ms.tolist(),
+                     "p50": st.p50, "p99": st.p99, "completed": st.completed,
+                     "offered": st.offered, "cosim_rows": plan.num_rows,
+                     "reference": COSIM_REFERENCE[name]})
+    flags = cosim_orderings(numbers)
+    out = {"phase": "cosim", "cells": len(cells), "groups": rep.num_groups,
+           "group_cells": rep.group_cells, "steps": steps, "wall_s": wall,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": counts, "plain_calls": plain.calls,
+           "orderings": {f"{e}/{m}": v for (e, m), v in flags.items()},
+           "per_cell": rows}
+    emit(out)
+    require(rep.num_groups == 2, "cosim: one merged group per engine")
+    total = sum(steps.values())
+    require(counts["monitor_tick"] == counts["route_arrivals"] == total,
+            "cosim: one monitor_tick and one route_arrivals launch a step "
+            "per group")
+    require(counts["decide"] == 0, "cosim: no trip, epoch or flowlet gap, so "
+            "no decide")
+    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+            "cosim: the standalone entries are not on the path")
+    require(plain.calls == 0, "cosim: no plain version ran on the card")
+
+    def close(got, want, band):
+        if math.isinf(want) or math.isinf(got):
+            return math.isinf(want) and math.isinf(got)
+        return within(got, want, band)
+    for name, (p50, p99, iters, done, offered) in numbers.items():
+        r50, r99, riters, rdone, roffered = COSIM_REFERENCE[name]
+        require(close(p50, r50, P50_BAND), f"{name}: iteration p50 in band")
+        require(close(p99, r99, P99_BAND), f"{name}: iteration p99 in band")
+        require(iters == riters, f"{name}: iterations done equal")
+        require(offered == roffered, f"{name}: offered flows equal")
+        require(abs(done - rdone) <= COMPLETED_BAND * roffered,
+                f"{name}: completed in band")
+    require(flags == COSIM_ORDERING, "cosim: each LCMP ordering flag equals "
+            "the reference's")
+    return out
+
+
+def switch_inputs(dev):
+    """Phase switch's tables and per-tick inputs, made from its seed."""
+    from repro_torch.core import tables
+    rng = np.random.default_rng(SWITCH["seed"])
+    P, C, n = SWITCH["ports"], SWITCH["cands"], SWITCH["batch"]
+    rates = [int(x) for x in rng.choice([40, 100, 200, 400], P)]
+    cport = rng.choice(P, C, replace=False)
+    delays = rng.choice([5_000, 8_000, 12_000, 40_000], C)
+    caps = rng.choice([100, 200, 400], C)
+    # queue cells: random walks inside the 6 GB buffer
+    steps = rng.integers(-600_000, 700_000, (SWITCH["ticks"], P))
+    queues = np.clip(np.cumsum(steps, 0), 0, 5_800_000).astype(np.int32)
+    flows, seen = [], np.zeros(0, np.uint32)
+    for tick in range(SWITCH["ticks"]):
+        fresh = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        if len(seen):                # half of a batch established flows
+            fresh[: n // 2] = rng.choice(seen[-8 * n:], n // 2)
+        flows.append(fresh.astype(np.int64))
+        seen = np.concatenate([seen, fresh[n // 2:]])
+    return (tables.bootstrap_tables(rates, buffer_bytes=6 * 10**9, device=dev),
+            delays, caps, cport, torch.tensor(queues, device=dev),
+            torch.tensor(np.stack(flows), device=dev))
+
+
+def switch_run(dev, inputs, timed: bool = False) -> dict:
+    """Phase switch's 200 ticks through ``core.switchd``; returns the
+    choices, new-flow flags, final switch and (``timed``) the synchronized
+    host µs of each ``route_batch``."""
+    from repro_torch.core import switchd
+    tb, delays, caps, cport, queues, flows = inputs
+    params = switchd.SwitchParams(idle_timeout_us=SWITCH["idle_timeout_us"])
+    sw = switchd.make_switch(tb, delays, caps, cport, SWITCH["ports"],
+                             SWITCH["capacity"], params, device=dev)
+    dead = int(cport[int(torch.argmin(sw.c_path))])
+    choices, news, us = [], [], []
+    for tick in range(SWITCH["ticks"]):
+        now = tick * 100
+        if tick == SWITCH["dead_tick"]:
+            alive = torch.ones(SWITCH["ports"], dtype=torch.bool, device=dev)
+            alive[dead] = False
+            sw = switchd.set_port_liveness(sw, alive)
+        sw = switchd.monitor_tick(sw, queues[tick], now, params)
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        sw, idx, new = switchd.route_batch(sw, flows[tick], now, params)
+        if timed:
+            torch.cuda.synchronize()
+            us.append(1e6 * (time.perf_counter() - t0))
+        if tick % SWITCH["gc_every"] == SWITCH["gc_every"] - 1:
+            sw = switchd.gc_tick(sw, now, params)
+        choices.append(idx)
+        news.append(new)
+    return {"choice": torch.stack(choices), "is_new": torch.stack(news),
+            "switch": sw, "dead_port": dead, "route_us": us}
+
+
+def phase_switch(dev) -> dict:
+    """Phase switch (see the module docstring)."""
+    from repro_torch.core import flowcache as fc
+    from repro_torch.core import switchd, tables
+    from repro_torch.kernels import ops, ref
+    inputs = switch_inputs(dev)
+    ops.reset_counts()
+    with PlainCalls() as plain:
+        got = switch_run(dev, inputs, timed=True)
+        torch.cuda.synchronize()
+    counts = ops.counts()
+    # the same run through the plain versions, on the card
+    kernels = ops.cong_update, ops.lcmp_decide
+    ops.cong_update, ops.lcmp_decide = ref.cong_update_ref, ref.lcmp_decide_ref
+    try:
+        want = switch_run(dev, inputs)
+    finally:
+        ops.cong_update, ops.lcmp_decide = kernels
+    a, b = got["switch"], want["switch"]
+    same = {"choice": torch.equal(got["choice"], want["choice"]),
+            "is_new": torch.equal(got["is_new"], want["is_new"]),
+            "c_cong": torch.equal(a.c_cong, b.c_cong),
+            "cong": all(torch.equal(getattr(a.cong, f.name),
+                                    getattr(b.cong, f.name))
+                        for f in dataclasses.fields(a.cong)),
+            "cache": all(torch.equal(getattr(a.cache, f.name),
+                                     getattr(b.cache, f.name))
+                         for f in dataclasses.fields(a.cache))}
+    # a colliding batch: 4,096 lanes over 64 slots, on the card and the CPU
+    rng = np.random.default_rng(SWITCH["seed"] + 1)
+    ids = torch.tensor(rng.integers(0, 2**32, 4096, dtype=np.uint64)
+                       .astype(np.int64))
+    outs = torch.tensor(rng.integers(-1, SWITCH["cands"], 4096)
+                        .astype(np.int32))
+    do = torch.tensor(rng.random(4096) < 0.6)
+    caches = {d: fc.insert(fc.FlowCache.init(64, device=d), ids.to(d),
+                           outs.to(d), 5, do.to(d)) for d in ("cpu", dev)}
+    collide = all(torch.equal(getattr(caches["cpu"], f.name),
+                              getattr(caches[dev], f.name).cpu())
+                  for f in dataclasses.fields(caches["cpu"]))
+    # more than 8 candidates: refused, as the kernel does
+    wide = switchd.make_switch(tables.bootstrap_tables([100] * 9, device=dev),
+                               [5_000] * 9, [100] * 9, list(range(9)), 9,
+                               device=dev)
+    try:
+        switchd.route_batch(wide, torch.arange(4, device=dev), 0)
+        refused = False
+    except ValueError:
+        refused = True
+    us = np.asarray(got["route_us"][1:])
+    out = {"phase": "switch", **SWITCH, "dead_port": got["dead_port"],
+           "launches": counts, "plain_calls": plain.calls, "equal": same,
+           "new_flows": int(got["is_new"].sum()),
+           "cache_valid": int(a.cache.valid.sum()),
+           "route_batch_us_median": float(np.median(us)),
+           "route_batch_us_mean": float(us.mean()),
+           "collision_batch_equals_cpu": collide, "wide_set_refused": refused}
+    emit(out)
+    require(all(same.values()), "switch: the card's run equals the plain "
+            "run bit for bit")
+    require(counts["cong_update"] == counts["lcmp_decide"] == SWITCH["ticks"],
+            "switch: one cong_update and one lcmp_decide launch a tick")
+    require(plain.calls == 0, "switch: no plain version ran on the card")
+    require(collide, "switch: a colliding batch's cache equals the CPU's")
+    require(refused, "switch: more than 8 candidates refused on the card")
+    return out
+
+
 def phase_profile(dev, steps: int = 200) -> list:
     """Where a step's time goes (``profile_steps``): a fluid testbed8
     lcmp step, then a packet slot of fidelity_bench's testbed8 lcmp
@@ -2152,10 +2615,9 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
     ``route_arrivals`` at testbed8's shape (lcmp, the row with the most
     arrivals) and ``decide`` at wan2000's (lcmp, every flow, the
     failover's read), with their launches summed over the runs of
-    phases run and packet and the groups of phases sweep and
-    packet_sweep; the standalone ``cong_update``
-    and ``lcmp_decide`` entries, which the main path does not launch,
-    stand beside them."""
+    phases run and packet, the groups of phases sweep, packet_sweep and
+    cosim; the standalone ``cong_update`` and ``lcmp_decide`` entries
+    stand beside them, launched by phase switch (``core.switchd``)."""
     runs = {**runs, **{f"sweep/{g}": r for g, r in sweeps.items()}}
     meta = {"monitor_tick": ("src/repro_torch/kernels/csrc/cong_update.cu",
                              "src/repro/kernels/cong_update.py:74", "cong_update"),
@@ -2232,10 +2694,14 @@ def main() -> int:
     phase_profile(dev)
     sweeps = phase_sweep(dev, runs)
     fidelity = phase_packet_sweep(dev, packet_runs)
+    phase_sanitize(dev, runs, packet_runs)
+    cosim = phase_cosim(dev)
+    switch = phase_switch(dev)
     phase_device_vs_cpu(dev)
     train = phase_train(dev)
     phase_train_device_vs_cpu(dev)
-    emit(kernel_summary(checks, {**runs, **packet_runs}, train,
+    emit(kernel_summary(checks, {**runs, **packet_runs, "cosim": cosim,
+                                 "switch": switch}, train,
                         {**sweeps, **fidelity}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

@@ -2,16 +2,18 @@
 
 Counterpart of ``repro/configs``. Each ``<id>.py`` module exports CONFIG
 (the full published configuration) and SMOKE (a reduced config of the
-same family for CPU tests). The registry lists only what the port runs;
-the other families wait for their ROADMAP.md item.
+same family for CPU tests). The registry lists only what the port
+holds: qwen3-4b, and gemma2-9b, whose parameter count the training
+co-simulation reads (its forward waits for ROADMAP.md queue A item 11);
+the other families wait for that item.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["qwen3_4b"]
+ARCH_IDS = ["gemma2_9b", "qwen3_4b"]
 
-ALIASES = {"qwen3-4b": "qwen3_4b"}
+ALIASES = {"gemma2-9b": "gemma2_9b", "qwen3-4b": "qwen3_4b"}
 
 
 def get(arch_id: str, smoke: bool = False):

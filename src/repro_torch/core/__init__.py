@@ -4,6 +4,11 @@
   pathq  : Alg. 1/2 + Eq. 2 path-quality scores
   cong   : Q/T/D on-switch congestion estimator (Eqs. 3-5)
   select : Eq. 1 fused cost + diversity-preserving selection (§3.4)
+  baselines : the baseline routing laws
+  flowcache, switchd : the switch-local object model (Fig. 2), the one
+           path that launches the standalone cong_update and
+           lcmp_decide kernel entries
 
-Every function is integer-only and bit-exact with ``repro.core``.
+Every function is integer-only and bit-exact with ``repro.core`` (the
+flow cache on batches whose slots are distinct).
 """

@@ -13,8 +13,8 @@ re-decision ``redecide_tick``), ``redte_tick``, the four CC laws
 joins a sweep group's built cells into one world (``netsim.sweep``).
 The packet engine (``netsim.packet``) runs the same planes over its own
 data plane; ``get_engine`` resolves ``SimConfig.engine`` to the module.
-The sanitizer (``checks``) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (``check_slice``).
+``SimConfig.checks`` arms the physics-invariant sanitizer
+(``netsim.sanitize``) in both engines' steps.
 
 Under ``policy="sweep"`` each decision takes the law of its pair's cell,
 ``SimArrays.pair_policy`` (one code per pair of a merged world, see
@@ -105,8 +105,7 @@ def get_engine(name: str):
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """The reference's ``SimConfig`` fields that the two engines read
-    (``checks`` only so ``check_slice`` can refuse what is not ported),
+    """The reference's ``SimConfig`` fields that the two engines read,
     with the same defaults."""
     engine: str = "fluid"
     policy: str = "lcmp"
@@ -166,13 +165,8 @@ class SimConfig:
 
 
 def check_slice(cfg: SimConfig) -> None:
-    """Raise ``NotImplementedError`` for any configuration the port does
-    not run yet (the sanitizer), naming the ``ROADMAP.md`` item that
-    will; ``ValueError`` for an unknown engine, policy (a swept one
+    """Raise ``ValueError`` for an unknown engine, policy (a swept one
     included) or CC law."""
-    def todo(what: str, item: str):
-        raise NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue A item {item}")
     if cfg.engine not in ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}; valid: {ENGINES}")
     for p in cfg.policies:
@@ -182,8 +176,6 @@ def check_slice(cfg: SimConfig) -> None:
     if cfg.cc not in CC_LAWS:
         raise ValueError(f"unknown congestion control {cfg.cc!r}; valid: "
                          f"{CC_LAWS}")
-    if cfg.checks:
-        todo("the physics-invariant sanitizer (checks)", "7")
 
 
 @dataclasses.dataclass

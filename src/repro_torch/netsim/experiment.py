@@ -8,9 +8,10 @@ the same path on the CPU with the kernels' plain versions. Both engines
 the scenarios' fail and degrade schedules, ``ctrl_period_us``,
 ``sig_delay_scale``, ``redecide_period_us`` (fluid), ``flowlet_gap_us``
 (packet), ``n_subflows`` and ``load_sched`` run; a grid of specs runs
-batched through ``netsim.sweep.run_sweep``. The training co-simulation
-and ``checks`` raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+batched through ``netsim.sweep.run_sweep``. ``checks`` (or
+``REPRO_CHECKS=1``) arms the physics-invariant sanitizer
+(``netsim.sanitize``); ``cosim_model`` overlays a training job's
+collective buckets on the traffic (``repro_torch.cosim``).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ class ExpSpec:
     flowlet_gap_us: int = 0          # packet engine: flowlet idle gap
     redecide_period_us: int = 0      # fluid engine: re-decision epoch
     n_subflows: int = 1              # amp: subflows per flow
-    cosim_model: str = ""            # training co-simulation (later slice)
+    cosim_model: str = ""            # training co-simulation (repro_torch.cosim)
     cosim_cell: str = "train_4k"
     cosim_iters: int = 6
     cosim_compress: int = 1
@@ -118,10 +119,6 @@ def background_pair_ids(table, fg_ids) -> list:
 
 
 def make_flows(spec: ExpSpec, scen: scenarios.Scenario, table):
-    if spec.cosim_model:
-        raise NotImplementedError(
-            "the training co-simulation overlay is not ported yet: "
-            "ROADMAP.md queue A item 10")
     fg_ids = traffic_pair_ids(spec, scen, table)
     bg_ids = (background_pair_ids(table, fg_ids)
               if spec.bg_load > 0 else None)
@@ -131,11 +128,20 @@ def make_flows(spec: ExpSpec, scen: scenarios.Scenario, table):
             spec.load_sched, spec.duration_us, table, scen,
             fg_ids, bg_ids or ())
         kw = dict(sched_t=sched_t, load_rows=fg_rows, bg_rows=bg_rows)
-    return generate(table, cdfmod.WORKLOADS[spec.workload], spec.load,
-                    spec.duration_us, pair_ids=fg_ids,
-                    seed=spec.seed, cap_scale=spec.cap_scale,
-                    bg_pair_ids=bg_ids, bg_load=spec.bg_load,
-                    n_subflows=spec.n_subflows, **kw)
+    fs = generate(table, cdfmod.WORKLOADS[spec.workload], spec.load,
+                  spec.duration_us, pair_ids=fg_ids,
+                  seed=spec.seed, cap_scale=spec.cap_scale,
+                  bg_pair_ids=bg_ids, bg_load=spec.bg_load,
+                  n_subflows=spec.n_subflows, **kw)
+    if spec.cosim_model:
+        # the training job's collective rows, overlaid after every rng
+        # draw (the plan is rng-free and the merge a stable sort, so the
+        # background rows stay as generated); imported here, since plain
+        # runs never need the model-config registry
+        from repro_torch.cosim import workload as cosim_workload
+        fs = cosim_workload.overlay(
+            fs, cosim_workload.build_plan(spec, scen, table))
+    return fs
 
 
 def spec_to_cfg(spec: ExpSpec, scen: scenarios.Scenario) -> SimConfig:

@@ -38,6 +38,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.netsim import sanitize
 from repro_torch.netsim.engine import (  # noqa: F401  (build & co. re-exported)
     HIST, SimArrays, SimConfig, SimState, _cc_update, _reroute_dead,
     attach_link_caps, build, check_slice, ctrl_tick, redecide_tick,
@@ -47,7 +48,9 @@ name = "fluid"
 
 
 def make_step(ar: SimArrays, cfg: SimConfig):
-    """``step(st, t) -> st`` for one ``dt`` of the fluid model."""
+    """``step(st, t) -> st`` for one ``dt`` of the fluid model. With
+    ``cfg.checks`` the step ends in ``sanitize.step_check`` and
+    ``step.checker`` (else None) holds the run's first failures."""
     check_slice(cfg)
     L = ar.link_cap.shape[0]
     dt = float(cfg.dt_us)
@@ -60,6 +63,7 @@ def make_step(ar: SimArrays, cfg: SimConfig):
     park = L + torch.arange(ar.f_id.shape[0] * ar.path_links.shape[1],
                             dtype=torch.int32, device=ar.link_cap.device
                             ).reshape(-1, ar.path_links.shape[1])
+    checker = sanitize.Checker() if cfg.checks else None
 
     def step(st: SimState, t: int) -> SimState:
         # 0) link trips + lazy failover: flows pinned to a dead path
@@ -141,8 +145,14 @@ def make_step(ar: SimArrays, cfg: SimConfig):
             fct_us=torch.where(newly_done, fct, st.fct_us))
 
         # 7) RedTE periodic split-ratio re-optimization
-        return redte_tick(t, st, ar, cfg)
+        st = redte_tick(t, st, ar, cfg)
 
+        # 8) debug-mode physics invariants (checked runs only)
+        if checker is not None:
+            st = sanitize.step_check(t, st, ar, cfg, checker)
+        return st
+
+    step.checker = checker
     return step
 
 
@@ -150,8 +160,11 @@ def make_step(ar: SimArrays, cfg: SimConfig):
 def run(arrs: SimArrays, state: SimState, cfg: SimConfig) -> SimState:
     """The whole horizon -> final state, under ``torch.inference_mode``
     (no autograd bookkeeping per op). ``state`` is consumed: its rings
-    and registers are updated in place."""
+    and registers are updated in place. A checked run raises
+    ``sanitize.InvariantError`` at its end if an invariant failed."""
     step = make_step(arrs, cfg)
     for t in range(cfg.num_steps):
         state = step(state, t)
+    if step.checker is not None:
+        step.checker.throw()
     return state

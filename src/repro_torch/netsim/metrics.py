@@ -1,15 +1,15 @@
 """FCT-slowdown and utilization metrics (paper §6 "Metrics"); counterpart
 of ``repro/netsim/metrics.py`` (``FCTStats`` with ``completion_rate`` and
-``by_size_bucket``, ``fct_stats`` with ``mask`` and amp's subflow
-collapse, ``completion_wall_us``, ``fg_bg_stats``, ``phase_stats``,
-``per_pair_stats``, ``link_utilization``). The reference's optional
-host-side sanitizer checks in ``fct_stats`` belong to the sanitizer
-(ROADMAP.md queue A item 7).
+``by_size_bucket``, ``fct_stats`` with ``mask``, amp's subflow collapse
+and the sanitizer's host checks under ``REPRO_CHECKS=1``,
+``completion_wall_us``, ``fg_bg_stats``, ``phase_stats``,
+``per_pair_stats``, ``link_utilization``).
 
 Slowdown = actual FCT / ideal FCT, the ideal being the flow alone on the
 pair's minimum-propagation-delay candidate: prop(best) + size /
 bottleneck_cap(best). Final states are read back to numpy once, after
-the run.
+the run; a final state may also be numpy arrays by field name (a sweep
+cell's ``CellResult.final``).
 """
 from __future__ import annotations
 
@@ -17,7 +17,9 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+import torch
 
+from repro_torch.netsim import sanitize
 from repro_torch.netsim.engine import SimArrays, SimConfig, SimState
 from repro_torch.netsim.paths import PathTable
 from repro_torch.traffic.gen import FlowSet
@@ -62,6 +64,11 @@ class FCTStats:
         return out
 
 
+def as_numpy(x) -> np.ndarray:
+    """A state field as numpy: a tensor read back, else as it is."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _collapse_subflows(flows: FlowSet, done, fct, mask):
     """Per-subflow rows back to parent flows (amp): a parent is done when
     all its subflows delivered, its FCT is the last subflow's, its size
@@ -88,8 +95,8 @@ def fct_stats(final: SimState, table: PathTable, flows: FlowSet,
               cfg: SimConfig, mask=None) -> FCTStats:
     """Slowdown stats over all flows, or the ``mask``-selected subset;
     subflow sets (``flows.subflow_of``) are scored per parent flow."""
-    done = final.done.cpu().numpy()
-    fct = final.fct_us.cpu().numpy()
+    done = as_numpy(final.done)
+    fct = as_numpy(final.fct_us)
     sizes = flows.size_bytes
     pair = flows.pair_id
     if getattr(flows, "subflow_of", None) is not None:
@@ -102,6 +109,17 @@ def fct_stats(final: SimState, table: PathTable, flows: FlowSet,
     ideal = prop + sizes / cap
     sl = fct[done] / ideal[done]
     offered = int(mask.sum()) if mask is not None else len(done)
+    if sanitize.host_checks_enabled():
+        # completion-accounting identity (host-side half of the
+        # completion_identity invariant)
+        sanitize.host_check(int(done.sum()) <= offered,
+                            "completion_identity: more completions than "
+                            "offered flows")
+        sanitize.host_check(bool((fct[done] > 0.0).all()),
+                            "completion_identity: completed flow with "
+                            "FCT <= 0")
+        sanitize.host_check(bool(np.isfinite(sl).all()),
+                            "completion_identity: non-finite slowdown")
     return FCTStats(slowdown=np.maximum(sl, 1.0), sizes=sizes[done],
                     completed=int(done.sum()), offered=offered)
 
@@ -109,9 +127,8 @@ def fct_stats(final: SimState, table: PathTable, flows: FlowSet,
 def completion_wall_us(final: SimState, flows: FlowSet) -> np.ndarray:
     """(F,) wall-clock completion time per flow row (arrival plus FCT),
     NaN where the flow never delivered."""
-    done = final.done.cpu().numpy()
-    wall = (np.asarray(flows.arrival_us, np.float64)
-            + final.fct_us.cpu().numpy())
+    done = as_numpy(final.done)
+    wall = np.asarray(flows.arrival_us, np.float64) + as_numpy(final.fct_us)
     return np.where(done, wall, np.nan)
 
 

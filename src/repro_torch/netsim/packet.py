@@ -47,7 +47,9 @@ Differences from the reference, by design:
   finished flow, a pad hop) to a parking link ``f % L`` instead of link 0
   or path 0's links, so the card's atomics do not pile up on one address;
   every contribution is a non-negative byte count, so adding +0.0
-  elsewhere leaves each sum as it was;
+  elsewhere leaves each sum as it was; on the card the sums run in
+  float64 and are cast back, so a run repeats bit for bit (float32
+  atomics add in a varying order: two runs differed in the last bits);
 - ``inflight`` and ``stranded`` sum a flow's hop queues in hop order.
 """
 from __future__ import annotations
@@ -57,7 +59,7 @@ import dataclasses
 import torch
 
 from repro_torch import device as devmod
-from repro_torch.netsim import engine
+from repro_torch.netsim import engine, sanitize
 from repro_torch.netsim.engine import (
     HIST, SimArrays, SimConfig, SimState, _cc_update, _reroute_dead,
     check_slice, ctrl_tick, redecide_tick, redte_tick, step_phases,
@@ -134,7 +136,11 @@ def _seg_index(idx: torch.Tensor, ok: torch.Tensor,
 
 
 def make_step(ar: SimArrays, cfg: SimConfig):
-    """``step(st, t) -> st`` for one slot of the packet model."""
+    """``step(st, t) -> st`` for one slot of the packet model. With
+    ``cfg.checks`` the PFC gate goes through ``sanitize.pfc_gate``, each
+    forward through ``sanitize.check_pfc`` and the slot ends in
+    ``sanitize.step_check``; ``step.checker`` (else None) holds the run's
+    first failures."""
     check_slice(cfg)
     L, F, H = ar.link_cap.shape[0], ar.f_pair.shape[0], ar.path_links.shape[1]
     dev = ar.link_cap.device
@@ -155,10 +161,18 @@ def make_step(ar: SimArrays, cfg: SimConfig):
     # the pause frame of the hop after it takes to reach it)
     hop_pd = torch.div(ar.link_delay_us[torch.clamp_min(ar.path_links, 0)],
                        cfg.dt_us, rounding_mode="floor")
+    checker = sanitize.Checker() if cfg.checks else None
+
+    # per-link sums: on the card in float64, so the order in which
+    # index_add_'s atomics add does not show in the float32 result and a
+    # run repeats bit for bit (with float32 atomics two runs differed in
+    # the last bits), as the fluid step's offered load; on the CPU in
+    # float32, as the reference
+    acc = torch.float64 if dev.type == "cuda" else torch.float32
 
     def seg(vals, idx):
-        return torch.zeros((L,), dtype=torch.float32,
-                           device=dev).index_add_(0, idx, vals)
+        return torch.zeros((L,), dtype=acc, device=dev).index_add_(
+            0, idx, vals.to(acc)).to(torch.float32)
 
     def step(st: PacketState, t: int) -> PacketState:
         # 0) link trips + lazy failover with go-back-N
@@ -201,8 +215,13 @@ def make_step(ar: SimArrays, cfg: SimConfig):
         pslot = (t - hop_pd[pfc][:, :-1]) % HIST     # floors: Python's %
         paused_next = (st.hist_pause.reshape(-1)[sidx[:, 1:] * HIST + pslot]
                        & has_next)
-        gate = geom_ok.clone()
-        gate[:, :-1] &= ~paused_next
+        if checker is not None:
+            # checked mode: the gate goes through the sanitizer's seam
+            gate = sanitize.pfc_gate(geom_ok, torch.cat(
+                [paused_next, torch.zeros_like(geom_ok[:, :1])], 1))
+        else:
+            gate = geom_ok.clone()
+            gate[:, :-1] &= ~paused_next
 
         # 4) injection: CC-paced credit, rate-BDP window, whole packets;
         # the NIC's pause gate reads its first link's current state
@@ -257,6 +276,9 @@ def make_step(ar: SimArrays, cfg: SimConfig):
                                        / torch.clamp_min(offered_in, 1e-9), 1.0)
                 out = out * torch.where(nxt, f_in[ln], 1.0)
                 fwd = torch.where(nxt, out, 0.0)
+                if checker is not None:
+                    # pfc_lossless: XOFF downstream => nothing forwarded
+                    sanitize.check_pfc(fwd, paused_next[:, h], checker)
                 fq[:, h].sub_(out)
                 fq[:, h + 1].add_(fwd)
                 s_out, s_fwd = seg(out, lh), seg(fwd, ln)
@@ -305,8 +327,14 @@ def make_step(ar: SimArrays, cfg: SimConfig):
             fct_us=torch.where(newly_done, fct, st.fct_us))
 
         # 8) RedTE periodic split-ratio re-optimization (shared tick)
-        return redte_tick(t, st, ar, cfg)
+        st = redte_tick(t, st, ar, cfg)
 
+        # 9) debug-mode physics invariants (checked runs only)
+        if checker is not None:
+            st = sanitize.step_check(t, st, ar, cfg, checker)
+        return st
+
+    step.checker = checker
     return step
 
 
@@ -314,8 +342,11 @@ def make_step(ar: SimArrays, cfg: SimConfig):
 def run(arrs: SimArrays, state: PacketState, cfg: SimConfig) -> PacketState:
     """The whole horizon -> final state, under ``torch.inference_mode``
     (no autograd bookkeeping per op). ``state`` is consumed: its rings,
-    registers and hop queues are updated in place."""
+    registers and hop queues are updated in place. A checked run raises
+    ``sanitize.InvariantError`` at its end if an invariant failed."""
     step = make_step(arrs, cfg)
     for t in range(cfg.num_steps):
         state = step(state, t)
+    if step.checker is not None:
+        step.checker.throw()
     return state

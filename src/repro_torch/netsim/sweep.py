@@ -24,10 +24,10 @@ workloads x loads x policies x seeds, §6). ``run_sweep``:
 The cells share no link, so no float sum mixes two cells: on the CPU
 each cell's result equals the sequential loop's bit for bit (the packet
 step's parked 0.0 contributions may land on another cell's links, which
-leaves its sums as they were). On the card the fluid step's offered
-load is summed in float64, where the order of the atomics does not show,
-so a cell's loads are its sequential run's; the packet step's
-``index_add_`` sums in a varying order, as in a single run.
+leaves its sums as they were). On the card both steps sum per link in
+float64, where the order of the atomics does not show, so a cell's sums
+are its sequential run's. With ``checks`` the merged run is sanitized
+and raises after it, as the reference's group runner does.
 
 Not carried over from the reference, since nothing is padded: the
 per-cell padding of the flow tables (``_pad_cell``, the reference

@@ -128,9 +128,15 @@ def test_wants_redecide_reads_the_engines_own_knob(engine, gap, period, armed):
 
 
 def test_packet_checks_still_raise_naming_item_7():
+    # item 7 (the sanitizer) is ported: a checked packet run completes and
+    # scores as the unchecked one (tests/test_torch_sanitize.py holds the
+    # invariants themselves)
     spec = pexp.ExpSpec(**dict(TESTBED8, duration_us=20_000, checks=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 7"):
-        pexp.run_experiment(spec, device="cpu")
+    on, _, _ = pexp.run_experiment(spec, device="cpu")
+    off, _, _ = pexp.run_experiment(dataclasses.replace(spec, checks=0),
+                                    device="cpu")
+    np.testing.assert_array_equal(on.slowdown, off.slowdown)
+    assert on.completed == off.completed > 0
 
 
 def test_packet_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
