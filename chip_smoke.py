@@ -103,10 +103,29 @@ the script exits non-zero and prints no result line. Phases:
    parameters against AdamW's bound; time split, tokens/s, peak memory;
 14. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
    and on the CPU from the same weights and batch;
+15. families: the attention decoders at their published widths in bf16,
+   depth cut (``FAMILY_LAYERS``): qwen3-4b, gemma2-9b, glm4-9b,
+   mistral-nemo-12b, mixtral-8x7b, dbrx-132b, each on 64 random tokens,
+   teacher-forced ``decode_step`` logits against ``forward``'s at rtol =
+   atol = 2e-2 (the reference's oracle), the moe forward with one-token
+   dispatch groups as decode has them, no token dropped by either pass;
+   gemma2-9b on a 4160-token prompt, its last 64 decode positions past
+   the 4096-token window against ``forward``; ``local_block_attention``
+   against windowed ``gqa_attention`` at gemma2's shapes (S = 12288);
+16. serve: ``launch.serve.prefill_then_decode`` at the reference's
+   defaults (batch 4, prompt 32, gen 32) for qwen3-4b, gemma2-9b and
+   mixtral-8x7b: tokens/s, ms per decode step, peak memory;
+17. launch_train: the training launcher's loop at full width on one
+   4096-token sequence, 3 steps of gemma2-9b (4 layers) and mixtral-8x7b
+   (1 layer): finite losses, step time, tokens/s, peak memory; then its
+   checkpoints at qwen3-4b's smoke size: bit-exact restores, resume from
+   step 2 to 4, the resumed step-3 loss, a SIGTERM's emergency checkpoint;
 then the ``kernels`` summary line and the result line. Phase 3 also
 holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
 for bit, at 1024, 2^16 and 2^24 elements and at the train phase's two
-wire-leg sizes.
+wire-leg sizes, and times the standalone ``cong_update`` and
+``lcmp_decide`` entries first at the shapes phase switch launches them
+at (48 ports; 4,096 flows x 8 candidates).
 """
 from __future__ import annotations
 
@@ -117,6 +136,7 @@ import itertools
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -387,6 +407,22 @@ FAR_SHARE = 0.10
 # 4 B of bits and writes 1 B of q; dequant reads 1 B and writes 4 B;
 # each adds a 4-byte scale per 1024 elements
 QSR_BYTES = {"qsr_int8": 9, "qsr_dequant": 5}
+
+
+# Phases families, serve and launch_train: the attention decoders at
+# their published widths, depth cut to fit one card (PERF.md section 4);
+# family checks run one 64-token sequence (batch 1, so a moe forward's
+# tokens are not regrouped), serve the reference's launcher defaults
+FAMILY_LAYERS = {"qwen3_4b": 4, "gemma2_9b": 4, "glm4_9b": 4,
+                 "mistral_nemo_12b": 4, "mixtral_8x7b": 2, "dbrx_132b": 1}
+FAMILY_SEQ = 64
+GEMMA_LONG = 4096 + 64          # gemma2's window + 64 decode positions
+LOCAL_BLOCK = dict(S=3 * 4096, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0)
+DECODE_TOL = 2e-2               # rtol = atol, tests/test_models_smoke.py:83
+SERVE = dict(batch=4, prompt=32, gen=32)
+SERVE_LAYERS = {"qwen3_4b": 4, "gemma2_9b": 4, "mixtral_8x7b": 2}
+LAUNCH_LAYERS = {"gemma2_9b": 4, "mixtral_8x7b": 1}
+LAUNCH_SEQ, LAUNCH_STEPS = 4096, 3
 
 
 START = time.perf_counter()
@@ -1346,6 +1382,13 @@ def phase_kernel_check(dev, shapes) -> dict:
             cong.append(check_cong_update(dev, s["tables"], f"{name} N={s['L']}", 200))
             decide.append(check_lcmp_decide(dev, s["A"], s["K"],
                                              f"{name} F={s['A']} P={s['K']}", 200))
+    # the standalone entries at the shapes phase switch launches them at
+    # (first: the kernels line's standalone rows read it)
+    cong.insert(0, check_cong_update(dev, switch_inputs(dev)[0],
+                                     f"switch N={SWITCH['ports']}", 200))
+    decide.insert(0, check_lcmp_decide(
+        dev, SWITCH["batch"], SWITCH["cands"],
+        f"switch F={SWITCH['batch']} P={SWITCH['cands']}", 200))
     tables = bulk_tables(dev, BULK)
     monitor.append(check_monitor(dev, tables, f"bulk N={BULK}", 20))
     cong.append(check_cong_update(dev, tables, f"bulk N={BULK}", 20))
@@ -2608,6 +2651,363 @@ def phase_train_device_vs_cpu(dev) -> dict:
     return out
 
 
+# ------------------------------------------------- the attention decoders
+def cut_config(arch: str, layers: int):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch), n_layers=layers)
+
+
+def seeded_tokens(dev, vocab: int, shape, seed: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=gen).to(dev)
+
+
+def one_token_groups():
+    """``layers.moe_block`` with each token in a dispatch group of its
+    own, as a decode step dispatches it (with larger groups the
+    reference's per-rank slot count sums tokens: ROADMAP.md queue C)."""
+    from unittest import mock
+
+    from repro_torch.models import layers
+    grouped = layers.moe_block
+    return mock.patch.object(layers, "moe_block", lambda *a, **k: grouped(
+        *a, **{**k, "group_size": 1}))
+
+
+def decode_all(params, cfg, tokens: torch.Tensor) -> tuple:
+    """Teacher-forced decode of every position -> (logits (B,S,V), device
+    ms per step from CUDA events)."""
+    from repro_torch.serve.decode import decode_step, init_cache
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, S, device=tokens.device)
+    positions = torch.arange(S, device=tokens.device)
+    outs = []
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(S):
+        lg, cache = decode_step(params, cfg, cache, tokens[:, i:i + 1],
+                                positions[i])
+        outs.append(lg[:, 0])
+    b.record()
+    torch.cuda.synchronize()
+    return torch.stack(outs, 1), a.elapsed_time(b) / S
+
+
+def decode_agreement(dec: torch.Tensor, fwd: torch.Tensor) -> dict:
+    diff = (dec - fwd).abs()
+    return {"max_abs_err": float(diff.max()),
+            "within": bool((diff <= DECODE_TOL + DECODE_TOL * fwd.abs()).all())}
+
+
+def check_family(dev, arch: str) -> dict:
+    """One configuration at full width in bf16: teacher-forced decode of
+    64 tokens against ``forward`` (a moe forward with one-token dispatch
+    groups; the grouped forward's distance recorded beside it), with the
+    moe drops of both passes."""
+    from repro_torch.models import arch as A
+    from repro_torch.models import layers
+    cfg = cut_config(arch, FAMILY_LAYERS[arch])
+    torch.cuda.reset_peak_memory_stats()
+    params = A.init_params(cfg, 0, device=dev)
+    tokens = seeded_tokens(dev, cfg.vocab, (1, FAMILY_SEQ), 19)
+    out = {"config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+           "act_dtype": cfg.act_dtype, "seq": FAMILY_SEQ}
+    moe = cfg.family == "moe"
+    with torch.no_grad(), layers.record_drops() as drops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if moe:
+            with one_token_groups():
+                fwd = A.forward(params, cfg, tokens)
+        else:
+            fwd = A.forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        out["forward_s"] = time.perf_counter() - t0
+        dec, out["decode_ms_per_step"] = decode_all(params, cfg, tokens)
+        out["drops"] = sum(int(d) for d in drops)
+        out["moe_calls"] = len(drops)
+        if moe:
+            with layers.record_drops() as gdrops:
+                grouped = A.forward(params, cfg, tokens)
+            out["grouped_forward_vs_decode_max_abs"] = float(
+                (dec - grouped).abs().max())
+            out["grouped_forward_drops"] = sum(int(d) for d in gdrops)
+            del grouped
+    out.update(decode_agreement(dec, fwd))
+    out["finite"] = bool(torch.isfinite(fwd).all() and torch.isfinite(dec).all())
+    out["shape_ok"] = tuple(dec.shape) == tuple(fwd.shape) == (1, FAMILY_SEQ, cfg.vocab)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params, fwd, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_matrices(tree: dict) -> dict:
+    """Every leaf of two or more dimensions as a bf16 copy (norm scales
+    stay f32, as ``rms_norm`` reads them)."""
+    return {k: bf16_matrices(v) if isinstance(v, dict)
+            else v.detach().to(torch.bfloat16) if v.dim() >= 2 else v.detach()
+            for k, v in tree.items()}
+
+
+def check_gemma_long(dev) -> dict:
+    """gemma2-9b on a prompt of its window + 64 tokens: the last 64
+    decode positions mask the keys beyond the 4096-token window on the
+    local layers and still match ``forward``."""
+    from repro_torch.models import arch as A
+    arch = "gemma2_9b"
+    cfg = cut_config(arch, FAMILY_LAYERS[arch])
+    torch.cuda.reset_peak_memory_stats()
+    # the matrices held in bf16: the very values each use's cast makes, so
+    # forward and decode compute what they compute on the f32 weights,
+    # without casting 2.6 B weights again at each of the 4160 steps
+    params = bf16_matrices(A.init_params(cfg, 0, device=dev))
+    tokens = seeded_tokens(dev, cfg.vocab, (1, GEMMA_LONG), 20)
+    with torch.no_grad():
+        fwd = A.forward(params, cfg, tokens)[:, -64:]
+        t0 = time.perf_counter()
+        dec, ms = decode_all(params, cfg, tokens)
+        wall = time.perf_counter() - t0
+        dec = dec[:, -64:]
+    out = {"config": cfg.name, "layers": cfg.n_layers, "seq": GEMMA_LONG,
+           "window": cfg.window, "compared_positions": 64,
+           "decode_ms_per_step": ms, "decode_wall_s": wall,
+           **decode_agreement(dec, fwd),
+           "finite": bool(torch.isfinite(dec).all()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del params, fwd, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_local_block(dev) -> dict:
+    """``local_block_attention`` against windowed ``gqa_attention`` on the
+    same random bf16 q/k/v at gemma2's shapes (S = 3 windows)."""
+    from repro_torch.models import layers
+    lb = LOCAL_BLOCK
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn((1, lb["S"], h, lb["hd"]), generator=gen,
+                           device=dev).to(torch.bfloat16)
+               for h in (lb["Hq"], lb["Hkv"], lb["Hkv"]))
+    with torch.no_grad():
+        blocks = cuda_ms(lambda: layers.local_block_attention(
+            q, k, v, window=lb["window"], softcap=lb["softcap"]), 2)
+        got = layers.local_block_attention(q, k, v, window=lb["window"],
+                                           softcap=lb["softcap"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = layers.gqa_attention(q, k, v, window=lb["window"],
+                                    softcap=lb["softcap"])
+        torch.cuda.synchronize()
+        full_peak = torch.cuda.max_memory_allocated()
+        err = float((got.float() - want.float()).abs().max())
+        full = cuda_ms(lambda: layers.gqa_attention(
+            q, k, v, window=lb["window"], softcap=lb["softcap"]), 2)
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return {**lb, "max_abs_err": err, "local_block_ms": blocks,
+            "windowed_full_ms": full, "windowed_full_peak_bytes": full_peak}
+
+
+def phase_families(dev) -> dict:
+    """Phase families (see the module docstring)."""
+    from repro_torch.kernels import ops
+    ops.reset_counts()
+    local = check_local_block(dev)
+    rows = [check_family(dev, arch) for arch in FAMILY_LAYERS]
+    long = check_gemma_long(dev)
+    out = {"phase": "families", "tolerance": DECODE_TOL, "local_block": local,
+           "configs": rows, "gemma_long": long, "launches": ops.counts()}
+    emit(out)
+    require(local["max_abs_err"] <= 2e-2, "families: local_block_attention "
+            "within 2e-2 of windowed gqa_attention at gemma2's shapes")
+    for r in rows:
+        require(r["finite"] and r["shape_ok"], f"families {r['config']}: "
+                "finite logits of the expected shape")
+        require(r["drops"] == 0, f"families {r['config']}: no token dropped "
+                "by the forward or the decode")
+        require(r["within"], f"families {r['config']}: teacher-forced decode "
+                f"within {DECODE_TOL} of forward (max {r['max_abs_err']:.4g})")
+    require(long["finite"] and long["within"], "families gemma2 long: the "
+            "last 64 decode positions past the window match forward")
+    require(not any(out["launches"].values()), "families: no kernel of ours "
+            "on the model path")
+    return out
+
+
+def phase_serve(dev) -> dict:
+    """Phase serve: ``launch.serve.prefill_then_decode`` at the reference
+    launcher's defaults for qwen3-4b, gemma2-9b and mixtral-8x7b."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prefill_then_decode
+    from repro_torch.models.arch import init_params
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    rows = []
+    ops.reset_counts()
+    for arch, layers in SERVE_LAYERS.items():
+        cfg = cut_config(arch, layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, 0, device=dev)
+        prompt = seeded_tokens(dev, cfg.vocab, (B, P), 22)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = prefill_then_decode(cfg, params, prompt, G)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows.append({"config": cfg.name, "layers": layers, "batch": B,
+                     "prompt": P, "gen": G, "wall_s": wall,
+                     "tokens_per_s": B * (P + G) / wall,
+                     "generated_tokens_per_s": B * G / wall,
+                     "ms_per_decode_step": 1e3 * wall / (P + G),
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "shape": list(toks.shape),
+                     "in_vocab": bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+                     "first_tokens": toks[0, :8].tolist()})
+        del params, toks
+        torch.cuda.empty_cache()
+    out = {"phase": "serve", "configs": rows, "launches": ops.counts()}
+    emit(out)
+    for r in rows:
+        require(r["shape"] == [B, G] and r["in_vocab"],
+                f"serve {r['config']}: (batch, gen) tokens inside the vocab")
+    require(not any(out["launches"].values()), "serve: no kernel of ours "
+            "on the model path")
+    return out
+
+
+def launch_quiet(fn, *a, **kw):
+    """Run a launcher call with its printed lines captured -> (result or
+    the SystemExit, the printed text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            res = fn(*a, **kw)
+        except SystemExit as e:
+            res = e
+    return res, buf.getvalue()
+
+
+def checkpoint_mechanics(dev) -> dict:
+    """The launcher's checkpoints at qwen3-4b's smoke size on the card: 4
+    steps saving every 2; a 2-step run resumed to 4 (restored state equal
+    to the saved one bit for bit, the optimizer count 4, step 3's loss
+    the uninterrupted run's within rtol 1e-3); a SIGTERM inside step 3
+    leaves its emergency checkpoint."""
+    import tempfile
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch.dist.lcmp_collectives import tree_flatten
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoint as ckpt
+    cfg = configs.get("qwen3_4b", smoke=True)
+    kw = dict(steps=4, batch=2, seq=64, ckpt_every=2, log_every=1, device=dev)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x.detach(), y.detach()) for x, y in
+                   zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+
+    def like() -> dict:
+        params, opt = launcher.init_train_state(cfg, 1, device=dev)
+        return {"params": params, "opt": opt}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, _ = launch_quiet(launcher.train, cfg, ckpt_dir=f"{tmp}/whole", **kw)
+        saved4 = ckpt.restore(ckpt.latest(f"{tmp}/whole")[1], like())
+        half, _ = launch_quiet(launcher.train, cfg, ckpt_dir=f"{tmp}/half",
+                               **{**kw, "steps": 2})
+        saved2 = ckpt.restore(ckpt.latest(f"{tmp}/half")[1], like())
+        resumed, text = launch_quiet(launcher.train, cfg, ckpt_dir=f"{tmp}/half",
+                                     resume=True, **kw)
+        make = launcher.make_train_step
+
+        def make_step(c, t):
+            step = make(c, t)
+
+            def run(params, opt, batch):
+                if int(opt.count) == 2:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return step(params, opt, batch)
+            return run
+        with mock.patch.object(launcher, "make_train_step", make_step):
+            term, term_text = launch_quiet(launcher.train, cfg,
+                                           ckpt_dir=f"{tmp}/term",
+                                           **{**kw, "steps": 6, "ckpt_every": 10})
+        found = ckpt.latest(f"{tmp}/term")
+        saved_t = ckpt.restore(found[1], like()) if found else None
+    loss3 = {"whole": whole.log[2]["loss"], "resumed": resumed.log[0]["loss"]}
+    return {
+        "config": cfg.name, "device": str(saved4["params"]["embed"].device),
+        "saved_4_equals_state": same(saved4, {"params": whole.params, "opt": whole.opt}),
+        "saved_2_equals_state": same(saved2, {"params": half.params, "opt": half.opt}),
+        "restored_are_leaf_params": all(
+            p.is_leaf and p.requires_grad and p.device.type == dev.type
+            for p in tree_flatten(saved2["params"])[0]),
+        "resume_line": "[resume] step 2 from" in text,
+        "resumed_steps": [r["step"] for r in resumed.log],
+        "resumed_count": int(resumed.opt.count), "step3_loss": loss3,
+        "step3_rel_err": abs(loss3["resumed"] - loss3["whole"]) / abs(loss3["whole"]),
+        "sigterm_exit": isinstance(term, SystemExit) and term.code == 1,
+        "sigterm_line": "[sigterm] emergency checkpoint at step 3" in term_text,
+        "sigterm_checkpoint": [found[0], int(saved_t["opt"].count)] if found else None}
+
+
+def phase_launch_train(dev) -> dict:
+    """Phase launch_train: the launcher's loop (``launch.train.train``) at
+    full width on one 4096-token sequence, 3 steps each for gemma2-9b and
+    mixtral-8x7b; then the checkpoint mechanics at smoke size."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    rows = []
+    ops.reset_counts()
+    for arch, layers in LAUNCH_LAYERS.items():
+        cfg = cut_config(arch, layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run, _ = launch_quiet(launcher.train, cfg, steps=LAUNCH_STEPS, batch=1,
+                              seq=LAUNCH_SEQ, log_every=1, device=dev)
+        peak = torch.cuda.max_memory_allocated()
+        timed = run.log[1:]                     # after the warm-up step
+        step_s = sum(r["seconds"] for r in timed) / len(timed)
+        rows.append({"config": cfg.name, "layers": layers,
+                     "params": cfg.param_count(), "seq": LAUNCH_SEQ,
+                     "log": run.log, "step_s": step_s,
+                     "tokens_per_s": LAUNCH_SEQ / step_s,
+                     "optimizer_count": int(run.opt.count),
+                     "max_memory_allocated": peak})
+        del run
+        torch.cuda.empty_cache()
+    launches = ops.counts()
+    mech = checkpoint_mechanics(dev)
+    out = {"phase": "launch_train", "configs": rows, "checkpoint": mech,
+           "launches": launches}
+    emit(out)
+    for r in rows:
+        require(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+                    for x in r["log"]) and len(r["log"]) == LAUNCH_STEPS
+                and r["optimizer_count"] == LAUNCH_STEPS,
+                f"launch_train {r['config']}: {LAUNCH_STEPS} steps, finite "
+                "losses and grad norms")
+    require(not any(launches.values()), "launch_train: no kernel of ours "
+            "(no pod axis, no qsr)")
+    require(mech["saved_4_equals_state"] and mech["saved_2_equals_state"],
+            "launch_train: checkpoints hold the saved state bit for bit")
+    require(mech["restored_are_leaf_params"], "launch_train: restored params "
+            "are leaf tensors on the card that require grad")
+    require(mech["resume_line"] and mech["resumed_steps"] == [3, 4]
+            and mech["resumed_count"] == 4, "launch_train: resume from step 2 "
+            "runs steps 3-4 and the optimizer count reaches 4")
+    require(mech["step3_rel_err"] <= 1e-3, "launch_train: the resumed step 3 "
+            "loss within rtol 1e-3 of the uninterrupted run's")
+    require(mech["sigterm_exit"] and mech["sigterm_line"]
+            and mech["sigterm_checkpoint"] == [3, 3],
+            "launch_train: SIGTERM inside step 3 leaves its checkpoint")
+    return out
+
+
 def kernel_summary(checks: dict, runs: dict, train: dict,
                    sweeps: dict) -> dict:
     """The ``kernels`` line: every TPU kernel, each at its main-path
@@ -2617,7 +3017,8 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
     failover's read), with their launches summed over the runs of
     phases run and packet, the groups of phases sweep, packet_sweep and
     cosim; the standalone ``cong_update`` and ``lcmp_decide`` entries
-    stand beside them, launched by phase switch (``core.switchd``)."""
+    stand beside them, launched by phase switch (``core.switchd``) and
+    timed at its shapes."""
     runs = {**runs, **{f"sweep/{g}": r for g, r in sweeps.items()}}
     meta = {"monitor_tick": ("src/repro_torch/kernels/csrc/cong_update.cu",
                              "src/repro/kernels/cong_update.py:74", "cong_update"),
@@ -2700,6 +3101,9 @@ def main() -> int:
     phase_device_vs_cpu(dev)
     train = phase_train(dev)
     phase_train_device_vs_cpu(dev)
+    phase_families(dev)
+    phase_serve(dev)
+    phase_launch_train(dev)
     emit(kernel_summary(checks, {**runs, **packet_runs, "cosim": cosim,
                                  "switch": switch}, train,
                         {**sweeps, **fidelity}))

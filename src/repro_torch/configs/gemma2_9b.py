@@ -1,9 +1,6 @@
 """gemma2-9b [dense]: local+global alternating attention with
 logit softcaps [arXiv:2408.00118; hf]. 42L d_model=3584 16H (GQA kv=8)
-d_ff=14336 vocab=256000, head_dim=256, window 4096 on local layers.
-
-The training co-simulation reads its parameter count; the forward
-refuses gemma's features until ROADMAP.md queue A item 11."""
+d_ff=14336 vocab=256000, head_dim=256, window 4096 on local layers."""
 from repro_torch.models.arch import ArchConfig
 
 CONFIG = ArchConfig(

@@ -21,8 +21,9 @@ def batch_at(cfg: ArchConfig, step: int, *, batch: int, seq: int,
     one, -1 at the last position}`` on ``device``."""
     if cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(
-            f"extra inputs of the {cfg.family} family are not ported yet "
-            "(ROADMAP.md, queue A item 11)")
+            f"the {cfg.family} family's extra inputs (patch or frame "
+            "embeddings) are not ported yet (ROADMAP.md, queue A item 11); "
+            "batch_at serves the token-only families")
     dev = devmod.resolve(device)
     key = np.random.SeedSequence([seed, step, host]).generate_state(1, np.uint64)
     gen = torch.Generator().manual_seed(int(key[0] >> np.uint64(1)))

@@ -8,8 +8,9 @@ Shapes (LM family):
   long_500k    seq=524288(KV) global_batch=1  -> serve_step; SSM/hybrid only
 
 long_500k is skipped for pure full-attention archs; every arch runs the
-other three cells. The reference's ``input_specs`` waits for the serving
-stack (``serve.decode.init_cache``, ROADMAP.md queue A item 11).
+other three cells. The reference's ``input_specs`` (the abstract inputs
+the dry-run lowers) waits for ``launch/dryrun`` (ROADMAP.md queue A
+item 11).
 """
 from __future__ import annotations
 

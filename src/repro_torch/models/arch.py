@@ -1,19 +1,22 @@
-"""Architecture definitions: ``ArchConfig`` and the dense decoder.
+"""Architecture definitions: ``ArchConfig`` and the attention decoders.
 
 Counterpart of ``repro/models/arch.py``. ``ArchConfig`` is the
 reference's, field for field. ``param_count`` (from the parameter
-shapes), ``init_params`` and ``forward`` cover the ``dense`` family
-(GQA, qk-norm, SwiGLU, untied head). The other families, and the gemma
-features of the dense one (sliding-window and local/global layers,
-softcaps, the ``sqrt(d)`` embedding scale), raise ``NotImplementedError``
-naming their ROADMAP.md item.
+shapes), ``active_param_count``, ``init_params`` and ``forward`` cover
+the ``dense`` family (GQA, qk-norm, SwiGLU, untied head, and gemma2's
+sliding-window local layers alternating with global ones, attention and
+final logit softcaps and ``sqrt(d)`` embedding scale) and the ``moe``
+family (top-k token-choice experts with capacity). The ``ssm``,
+``hybrid``, ``encdec`` and ``vlm`` families raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 Parameters are a nested dict of float32 tensors in the reference's
 layout: per-layer leaves stacked on axis 0 (``layers.attn.wq`` is
 ``(L, D, H*hd)``, input dimension first, not ``nn.Linear``'s
-``(out, in)``), so the flat gradient, its 1024-element scale blocks and
-its buckets are the reference's. Each layer runs under
-``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``.
+``(out, in)``; ``layers.moe.w_gate`` is ``(L, E, D, F)``), so the flat
+gradient, its 1024-element scale blocks and its buckets are the
+reference's. Each layer runs under ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -77,6 +80,15 @@ class ArchConfig:
         """Total N (for MODEL_FLOPS accounting), from the shapes."""
         return _count(param_shapes(self))
 
+    def active_param_count(self) -> int:
+        """Active N per token (MoE counts top_k of n_experts experts)."""
+        total = self.param_count()
+        if self.family != "moe" or self.n_experts == 0:
+            return total
+        expert = 3 * self.d_model * self.d_ff * self.n_layers
+        dense_part = total - self.n_experts * expert
+        return dense_part + self.top_k * expert
+
 
 # ------------------------------------------------------------------ shapes
 def _attn_shapes(cfg: ArchConfig) -> dict:
@@ -94,23 +106,38 @@ def _mlp_shapes(cfg: ArchConfig) -> dict:
     return dict(ln=(D,), w_gate=(D, Fd), w_up=(D, Fd), w_down=(Fd, D))
 
 
+def _moe_shapes(cfg: ArchConfig) -> dict:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return dict(ln=(D,), router=(D, E), w_gate=(E, D, Fd),
+                w_up=(E, D, Fd), w_down=(E, Fd, D))
+
+
 def _stack(tree: dict, n: int) -> dict:
     return {k: _stack(v, n) if isinstance(v, dict) else (n, *v)
             for k, v in tree.items()}
 
 
+PORTED_FAMILIES = ("dense", "moe")
+
+
 def _family_not_ported(cfg: ArchConfig) -> NotImplementedError:
     return NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP.md, queue A "
-        "item 11); the port runs the dense family")
+        f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP.md, "
+        "queue A item 11); the port runs the dense and moe families")
+
+
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise _family_not_ported(cfg)
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
-    """The reference's parameter tree of the dense family, as a nested
-    dict of shapes."""
-    if cfg.family != "dense":
-        raise _family_not_ported(cfg)
-    layer = dict(attn=_attn_shapes(cfg), mlp=_mlp_shapes(cfg))
+    """The reference's parameter tree of the dense and moe families, as
+    a nested dict of shapes."""
+    _require_ported(cfg)
+    ffn = (dict(mlp=_mlp_shapes(cfg)) if cfg.family == "dense"
+           else dict(moe=_moe_shapes(cfg)))
+    layer = dict(attn=_attn_shapes(cfg), **ffn)
     return dict(embed=(cfg.vocab, cfg.d_model),
                 lm_head=(cfg.vocab, cfg.d_model), final_ln=(cfg.d_model,),
                 layers=_stack(layer, cfg.n_layers))
@@ -121,16 +148,6 @@ def _count(tree: dict) -> int:
                for v in tree.values())
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise _family_not_ported(cfg)
-    if (cfg.window or cfg.alt_local_global or cfg.attn_softcap
-            or cfg.final_softcap or cfg.name.startswith("gemma")):
-        raise NotImplementedError(
-            "gemma's sliding-window and local/global layers, softcaps and "
-            "embedding scale are not ported yet (ROADMAP.md, queue A item 11)")
-
-
 # ------------------------------------------------------------------- init
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=devmod.DEFAULT):
     """Random float32 parameters from ``seed``, the reference's scheme
@@ -138,7 +155,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=devmod.DEFAULT):
     the square root of its (per-layer) input dimension). The numbers
     differ from the reference's PRNG; tests carry the reference's weights
     over with ``models.carry``."""
-    _require_dense(cfg)
     dev = devmod.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -147,6 +163,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=devmod.DEFAULT):
         if name in _NORMS:
             t = torch.zeros(shape, dtype=torch.float32, device=dev)
         else:
+            # the reference's per-layer shape[0]: D for a matrix, E for
+            # an expert stack
             fan_in = shape[1] if stacked else shape[0]
             scale = 1.0 if name == "embed" else 1.0 / math.sqrt(fan_in)
             t = torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -160,23 +178,35 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=devmod.DEFAULT):
 
 
 # ----------------------------------------------------------------- forward
-def _attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Causal self-attention with RoPE over the full sequence."""
+def _attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                layer_local: bool = False, kv_x=None, causal: bool = True,
+                positions=None, use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention (train/prefill). kv_x: cross-attn source."""
     B, S, D = x.shape
     h = L.rms_norm(x, p["ln"])
+    src = h if kv_x is None else kv_x
     q = h @ p["wq"].to(h.dtype)
-    k = h @ p["wk"].to(h.dtype)
-    v = h @ p["wv"].to(h.dtype)
+    k = src @ p["wk"].to(h.dtype)
+    v = src @ p["wv"].to(h.dtype)
+    Sk = src.shape[1]
     q = q.reshape(B, S, cfg.n_heads, cfg.hd)
-    k = k.reshape(B, S, cfg.n_kv, cfg.hd)
-    v = v.reshape(B, S, cfg.n_kv, cfg.hd)
+    k = k.reshape(B, Sk, cfg.n_kv, cfg.hd)
+    v = v.reshape(B, Sk, cfg.n_kv, cfg.hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"])
         k = L.rms_norm(k, p["k_norm"])
-    pos = torch.arange(S, device=x.device)[None]
-    q = L.rope(q, pos, cfg.rope_theta)
-    k = L.rope(k, pos, cfg.rope_theta)
-    o = L.gqa_attention(q, k, v)
+    if use_rope and kv_x is None:
+        pos = (positions if positions is not None
+               else torch.arange(S, device=x.device)[None])
+        q = L.rope(q, pos, cfg.rope_theta)
+        k = L.rope(k, pos, cfg.rope_theta)
+    window = cfg.window if (cfg.window and layer_local) else None
+    if window and S > 2 * window and S % window == 0 and kv_x is None:
+        o = L.local_block_attention(q, k, v, window=window,
+                                    softcap=cfg.attn_softcap)
+    else:
+        o = L.gqa_attention(q, k, v, causal=causal, window=window,
+                            softcap=cfg.attn_softcap)
     o = o.reshape(B, S, cfg.n_heads * cfg.hd)
     return x + o @ p["wo"].to(h.dtype)
 
@@ -186,10 +216,49 @@ def _mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def _decoder_layer(cfg: ArchConfig, params: dict, x: torch.Tensor):
-    """One dense decoder layer."""
-    x = _attn_apply(params["attn"], x, cfg)
-    return _mlp_apply(params["mlp"], x)
+def _moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln"])
+    return x + L.moe_block(h, p["router"], p["w_gate"], p["w_up"],
+                           p["w_down"], top_k=cfg.top_k)
+
+
+def _decoder_layer(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                   local: Optional[bool] = None):
+    """One decoder layer. ``local`` picks the sliding-window attention
+    of a dense layer (default: whenever the config has a window); a moe
+    layer is local whenever the config has a window."""
+    if cfg.family == "dense":
+        local = bool(cfg.window) if local is None else local
+        x = _attn_apply(params["attn"], x, cfg, layer_local=local)
+        return _mlp_apply(params["mlp"], x)
+    x = _attn_apply(params["attn"], x, cfg, layer_local=bool(cfg.window))
+    return _moe_apply(params["moe"], x, cfg)
+
+
+def layer_is_local(cfg: ArchConfig, i: int) -> Optional[bool]:
+    """gemma2's pair order: with ``alt_local_global`` even layers are
+    local and odd ones global; otherwise the layer's default."""
+    return (i % 2 == 0) if cfg.alt_local_global else None
+
+
+def embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the activation dtype; gemma's dense configs
+    scale them by sqrt(d_model) cast to that dtype first (59.75 in
+    bfloat16 for d_model 3584)."""
+    x = params["embed"][tokens].to(cfg.adt)
+    if cfg.family == "dense" and cfg.name.startswith("gemma"):
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.adt,
+                             device=x.device)
+    return x
+
+
+def head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, untied LM head and ``final_softcap`` -> f32 logits."""
+    x = L.rms_norm(x, params["final_ln"])
+    logits = (x @ params["lm_head"].to(x.dtype).t()).to(torch.float32)
+    if cfg.final_softcap:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
 
 
 def _unstack(tree: dict, n: int) -> list:
@@ -203,16 +272,20 @@ def _unstack(tree: dict, n: int) -> list:
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             extra=None) -> torch.Tensor:
     """Training/prefill forward -> logits (B, S, V) in float32."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if extra is not None:
         raise NotImplementedError("extra inputs belong to the vlm/encdec "
                                   "families (ROADMAP.md, queue A item 11)")
-    x = params["embed"][tokens].to(cfg.adt)
-    for lp in _unstack(params["layers"], cfg.n_layers):
+    if cfg.alt_local_global and cfg.n_layers % 2:
+        raise ValueError(f"{cfg.name}: local/global pairs need an even "
+                         f"n_layers, got {cfg.n_layers}")
+    x = embed(params, cfg, tokens)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        local = layer_is_local(cfg, i)
         if torch.is_grad_enabled():
-            x = checkpoint(lambda h, lp=lp: _decoder_layer(cfg, lp, h), x,
+            x = checkpoint(lambda h, lp=lp, local=local:
+                           _decoder_layer(cfg, lp, h, local), x,
                            use_reentrant=False)
         else:
-            x = _decoder_layer(cfg, lp, x)
-    x = L.rms_norm(x, params["final_ln"])
-    return (x @ params["lm_head"].to(x.dtype).t()).to(torch.float32)
+            x = _decoder_layer(cfg, lp, x, local)
+    return head(params, cfg, x)

@@ -1,15 +1,17 @@
 """Model building blocks in plain PyTorch.
 
-Counterpart of ``repro/models/layers.py`` for the dense decoder:
-``rms_norm``, ``rope``, ``gqa_attention`` and ``swiglu``, op for op as
-the reference writes them (weights f32, cast to the activation type at
-use; attention logits and softmax in f32). ``local_block_attention``,
-``moe_block``, ``mamba1_scan`` and ``mamba2_ssd`` are not ported yet
-(ROADMAP.md, queue A item 11).
+Counterpart of ``repro/models/layers.py`` for the attention decoders:
+``rms_norm``, ``rope``, ``gqa_attention``, ``local_block_attention``,
+``swiglu`` and ``moe_block``, op for op as the reference writes them
+(weights f32, cast to the activation type at use; attention logits and
+softmax in f32, masked with -1e30). ``mamba1_scan`` and ``mamba2_ssd``
+are not ported yet (ROADMAP.md, queue A item 11).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,23 +41,69 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
 
 
 # --------------------------------------------------------------- attention
-def gqa_attention(q, k, v):
-    """Causal attention over the full sequence. q: (B,S,Hq,D), k/v:
-    (B,S,Hkv,D), Hq % Hkv == 0 -> (B,S,Hq,D). The reference's
-    ``window``, ``softcap``, ``q_offset`` and non-causal options wait for
-    local attention, decode and the gemma and encdec families (ROADMAP.md,
-    queue A item 11)."""
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
+def _softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return logits
+    return torch.tanh(logits / cap) * cap
+
+
+def gqa_attention(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None, q_offset=0):
+    """q: (B,Sq,Hq,D), k/v: (B,Sk,Hkv,D), Hq % Hkv == 0 -> (B,Sq,Hq,D).
+
+    ``q_offset`` is the absolute position of q[0] (an int or a 0-d
+    tensor); ``window`` the sliding-window size (None: full)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
-    qg = q.reshape(B, S, Hkv, g, D)
+    qg = q.reshape(B, Sq, Hkv, g, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
     logits = logits / math.sqrt(D)
-    pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] <= pos[:, None]
+    logits = _softcap(logits, softcap)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(B, Sq, Hq, D)
+
+
+def local_block_attention(q, k, v, *, window: int,
+                          softcap: Optional[float] = None):
+    """Sliding-window attention over blocks of ``window`` queries, each
+    against its own and the previous block's keys: O(S * 2W) instead of
+    O(S^2). Exact for window <= block size. q,k,v: (B,S,H*,D) with
+    S % window == 0. Block 0's previous block is zero padding, masked."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    nb = S // window
+    qb = q.reshape(B, nb, window, Hq, D)
+    kb = k.reshape(B, nb, window, Hkv, D)
+    vb = v.reshape(B, nb, window, Hkv, D)
+    kprev = F.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    vprev = F.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    k2 = torch.cat([kprev, kb], dim=2)                 # (B,nb,2W,Hkv,D)
+    v2 = torch.cat([vprev, vb], dim=2)
+    g = Hq // Hkv
+    qg = qb.reshape(B, nb, window, Hkv, g, D)
+    logits = torch.einsum("bnqhgd,bnkhd->bnhgqk", qg, k2).to(torch.float32)
+    logits = logits / math.sqrt(D)
+    logits = _softcap(logits, softcap)
+    qpos = torch.arange(window, device=q.device)[:, None] + window
+    kpos = torch.arange(2 * window, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    mask0 = mask & (kpos >= window)                    # block 0: no padding
+    first = (torch.arange(nb, device=q.device) == 0)[:, None, None]
+    m = torch.where(first, mask0[None], mask[None])    # (nb,W,2W)
+    logits = torch.where(m[None, :, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bnhgqk,bnkhd->bnqhgd", probs, v2)
     return out.reshape(B, S, Hq, D)
 
 
@@ -64,3 +112,73 @@ def swiglu(x, w_gate, w_up, w_down):
     h = F.silu(x @ w_gate.to(x.dtype))
     h = h * (x @ w_up.to(x.dtype))
     return h @ w_down.to(x.dtype)
+
+
+# --------------------------------------------------------------------- moe
+_DROPS: Optional[list] = None
+
+
+@contextlib.contextmanager
+def record_drops():
+    """While active, each ``moe_block`` call appends to the yielded list
+    the number (a 0-d tensor) of its token-to-expert assignments that
+    fell at or beyond their expert's capacity."""
+    global _DROPS
+    prev, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = prev
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an all-zero row where ``idx`` is outside
+    [0, n) (``F.one_hot`` raises there)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int,
+              capacity_factor: float = 1.25, group_size: int = 512):
+    """Top-k token-choice MoE with capacity (GShard-style grouped
+    dispatch), the reference's arithmetic. x: (B,S,D); router_w: (D,E);
+    expert weights (E,D,F)/(E,F,D).
+
+    As in the reference, a token's slot in an expert is counted over the
+    group separately for each choice rank, so a first and a second
+    choice of two tokens can share an (expert, slot) and the expert
+    computes on their sum; an assignment at or beyond the capacity is
+    dropped (its one-hot slot row is zero). The capacity follows the
+    group size: a 1-token decode group has capacity 1."""
+    B, S, D = x.shape
+    E = router_w.shape[-1]
+    T = B * S
+    gsz = min(group_size, T)
+    G = T // gsz
+    xt = x.reshape(G, gsz, D)
+    logits = torch.einsum("gtd,de->gte", xt.to(torch.float32),
+                          router_w.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, experts = torch.topk(probs, top_k, dim=-1)       # (G,t,k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    cap = int(capacity_factor * (gsz * top_k) / E) + 1
+    onehot = _one_hot(experts, E, torch.float32)                # (G,t,k,E)
+    pos = torch.cumsum(onehot, dim=1) - onehot                  # per rank
+    pos = (pos * onehot).sum(2)                                 # (G,t,E)
+    keep = (pos < cap) & (onehot.sum(2) > 0)                    # (G,t,E)
+    gates_e = (gate_vals[..., None] * onehot).sum(2) * keep     # (G,t,E)
+    if _DROPS is not None:
+        _DROPS.append(top_k * G * gsz - keep.sum())
+
+    slot = _one_hot(pos.to(torch.int32), cap, x.dtype)
+    disp = slot * keep[..., None].to(x.dtype)                   # (G,t,E,C)
+    xe = torch.einsum("gtec,gtd->gecd", disp, xt)               # (G,E,C,D)
+
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate.to(x.dtype)))
+    h = h * torch.einsum("gecd,edf->gecf", xe, w_up.to(x.dtype))
+    ye = torch.einsum("gecf,efd->gecd", h, w_down.to(x.dtype))
+
+    comb = disp * gates_e[..., None].to(x.dtype)                # (G,t,E,C)
+    yt = torch.einsum("gtec,gecd->gtd", comb, ye)
+    return yt.reshape(B, S, D)

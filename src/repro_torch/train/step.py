@@ -1,7 +1,7 @@
 """The train step: the multi-pod LCMP train step in PyTorch.
 
 Counterpart of ``repro/train/step.py`` (``TrainConfig``, ``loss_fn``,
-``make_train_step``, ``init_train_state``). Compute flows as there:
+``make_train_step``, ``make_serve_step``, ``init_train_state``). Compute flows as there:
 parameters f32, activations ``cfg.act_dtype`` (bf16 by default),
 gradients f32, AdamW f32, and the cross-pod gradient reduction through
 the LCMP-scheduled collective layer (``dist.lcmp_collectives``), with an
@@ -27,6 +27,7 @@ from repro_torch import device as devmod
 from repro_torch.dist import lcmp_collectives as lc
 from repro_torch.dist.lcmp_collectives import PodAxis, tree_flatten
 from repro_torch.models.arch import ArchConfig, forward, init_params
+from repro_torch.serve.decode import decode_step
 from repro_torch.train.optim import (AdamWConfig, AdamWState, adamw_init,
                                      adamw_update)
 
@@ -168,6 +169,16 @@ class TrainStep:
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
     """Returns ``train_step(params, opt, batch) -> (params, opt, metrics)``."""
     return TrainStep(cfg, tcfg)
+
+
+def make_serve_step(cfg: ArchConfig):
+    """Returns ``serve_step(params, cache, tokens, pos) -> (logits,
+    cache)``, one ``decode_step`` (the cache is updated in place)."""
+
+    def serve_step(params, cache, tokens, pos):
+        return decode_step(params, cfg, cache, tokens, pos)
+
+    return serve_step
 
 
 def init_train_state(cfg: ArchConfig, seed: int = 0, *,
