@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import device as devmod
 from repro_torch.core.tables import SCORE_MAX, SwitchTables
 
 
@@ -46,7 +47,9 @@ class CongState:
     last_sample: torch.Tensor  # microseconds
 
     @classmethod
-    def init(cls, num_ports: int, device="cpu") -> "CongState":
+    def init(cls, num_ports: int, device=devmod.DEFAULT) -> "CongState":
+        device = devmod.resolve_or_meta(device)
+
         def z():
             return torch.zeros((num_ports,), dtype=torch.int32, device=device)
         return cls(queue_cur=z(), queue_prev=z(), trend=z(), dur_cnt=z(),

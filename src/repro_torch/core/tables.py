@@ -21,8 +21,10 @@ SCORE_MAX = 255          # all scores are 8-bit quantities (paper: 0-255)
 CELL_BYTES = 1024        # queue accounting granularity (1 cell = 1 KiB)
 
 
-def level_score_table(num_levels: int, device="cpu") -> torch.Tensor:
+def level_score_table(num_levels: int,
+                      device=devmod.DEFAULT) -> torch.Tensor:
     """Linear map from level index to a 0-255 score (paper §3.1.2)."""
+    device = devmod.resolve_or_meta(device)
     if num_levels < 2:
         return torch.zeros((max(num_levels, 1),), dtype=torch.int32,
                            device=device)
@@ -31,16 +33,18 @@ def level_score_table(num_levels: int, device="cpu") -> torch.Tensor:
 
 
 def capacity_class_thresholds(max_capacity_gbps: int, num_classes: int = 10,
-                              device="cpu") -> torch.Tensor:
+                              device=devmod.DEFAULT) -> torch.Tensor:
     """(num_classes-1,) increasing Gbps class boundaries."""
+    device = devmod.resolve_or_meta(device)
     cls = torch.arange(1, num_classes, dtype=torch.int32, device=device)
     return torch.div(cls * max_capacity_gbps, num_classes,
                      rounding_mode="floor")
 
 
 def queue_thresholds(buffer_bytes: int, num_levels: int = 16,
-                     device="cpu") -> torch.Tensor:
+                     device=devmod.DEFAULT) -> torch.Tensor:
     """Doubling ladder of queue-cell boundaries, top = full buffer."""
+    device = devmod.resolve_or_meta(device)
     buffer_cells = max(buffer_bytes // CELL_BYTES, num_levels)
     th = [max(buffer_cells >> (num_levels - 1 - i), 1)
           for i in range(1, num_levels)]

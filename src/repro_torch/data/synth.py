@@ -18,12 +18,10 @@ from repro_torch.models.arch import ArchConfig
 def batch_at(cfg: ArchConfig, step: int, *, batch: int, seq: int,
              seed: int = 0, host: int = 0, device=devmod.DEFAULT):
     """``{"tokens": (batch, seq) int64, "labels": tokens shifted left by
-    one, -1 at the last position}`` on ``device``."""
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family} family's extra inputs (patch or frame "
-            "embeddings) are not ported yet (ROADMAP.md, queue A item 11); "
-            "batch_at serves the token-only families")
+    one, -1 at the last position}`` on ``device``; for the vlm family
+    also ``"extra"``, patch embeddings (batch, n_patches, d_model), and
+    for encdec frame embeddings (batch, enc_seq, d_model): float32
+    normal x 0.02, drawn after the tokens from the same generator."""
     dev = devmod.resolve(device)
     key = np.random.SeedSequence([seed, step, host]).generate_state(1, np.uint64)
     gen = torch.Generator().manual_seed(int(key[0] >> np.uint64(1)))
@@ -31,4 +29,10 @@ def batch_at(cfg: ArchConfig, step: int, *, batch: int, seq: int,
                            dtype=torch.int64)
     labels = torch.roll(tokens, -1, dims=1)
     labels[:, -1] = -1
-    return dict(tokens=tokens.to(dev), labels=labels.to(dev))
+    out = dict(tokens=tokens.to(dev), labels=labels.to(dev))
+    n_extra = {"vlm": cfg.n_patches, "encdec": cfg.enc_seq}.get(cfg.family)
+    if n_extra is not None:
+        extra = torch.randn((batch, n_extra, cfg.d_model), generator=gen,
+                            dtype=torch.float32) * 0.02
+        out["extra"] = extra.to(dev)
+    return out

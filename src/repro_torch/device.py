@@ -23,3 +23,10 @@ def resolve(device=DEFAULT) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def resolve_or_meta(device=DEFAULT) -> torch.device:
+    """``resolve``, but a ``"meta"`` device (shapes without storage, which
+    no kernel reads) passes through as it is."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve(dev)

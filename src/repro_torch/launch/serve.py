@@ -1,6 +1,10 @@
 """Batched serving launcher: prefill + decode loop with KV caches.
 
-Counterpart of ``repro/launch/serve.py`` for the attention decoders.
+Counterpart of ``repro/launch/serve.py``. As there, the encdec family
+is refused with the reference's message (the example it names is not in
+the repo; an encdec decode runs through ``serve.decode`` with a cross
+cache from ``prefill_cross_cache``), and a vlm decodes without its
+patch prefix.
 
 Usage (the card by default; ``--device cpu`` on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b --smoke \\
@@ -53,6 +57,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        raise SystemExit("use examples/whisper_serve.py for enc-dec serving")
     dev = devmod.resolve(args.device)
     params = init_params(cfg, 0, device=dev)
     gen = torch.Generator().manual_seed(1)

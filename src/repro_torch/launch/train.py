@@ -14,7 +14,8 @@ inside a train step is handled when the step returns, and the emergency
 checkpoint holds that step; one that arrives between steps saves at
 once. The host mesh (``--data``/``--model`` > 1) is not ported
 (ROADMAP.md, queue A item 9). ``train`` runs the loop for any
-``ArchConfig``.
+``ArchConfig``; a vlm or encdec batch's ``extra`` (patch or frame
+embeddings, ``data.synth.batch_at``) reaches the step with its tokens.
 
 Usage (the card by default; ``--device cpu`` on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b --smoke \\

@@ -1,22 +1,26 @@
-"""Architecture definitions: ``ArchConfig`` and the attention decoders.
+"""Architecture definitions: ``ArchConfig`` and the six families.
 
 Counterpart of ``repro/models/arch.py``. ``ArchConfig`` is the
 reference's, field for field. ``param_count`` (from the parameter
 shapes), ``active_param_count``, ``init_params`` and ``forward`` cover
-the ``dense`` family (GQA, qk-norm, SwiGLU, untied head, and gemma2's
+every family: ``dense`` (GQA, qk-norm, SwiGLU, untied head, and gemma2's
 sliding-window local layers alternating with global ones, attention and
-final logit softcaps and ``sqrt(d)`` embedding scale) and the ``moe``
-family (top-k token-choice experts with capacity). The ``ssm``,
-``hybrid``, ``encdec`` and ``vlm`` families raise
-``NotImplementedError`` naming their ROADMAP.md item.
+final logit softcaps and ``sqrt(d)`` embedding scale), ``moe`` (top-k
+token-choice experts with capacity), ``ssm`` (Mamba-1 layers),
+``hybrid`` (Mamba-2 layers with one shared attention block applied
+before every ``shared_attn_every``-th layer), ``encdec`` (a non-causal
+encoder over frame embeddings; decoder layers with causal
+self-attention, cross-attention and an MLP, no rope) and ``vlm`` (a
+dense decoder over patch embeddings prepended to the tokens).
 
 Parameters are a nested dict of float32 tensors in the reference's
 layout: per-layer leaves stacked on axis 0 (``layers.attn.wq`` is
 ``(L, D, H*hd)``, input dimension first, not ``nn.Linear``'s
 ``(out, in)``; ``layers.moe.w_gate`` is ``(L, E, D, F)``), so the flat
 gradient, its 1024-element scale blocks and its buckets are the
-reference's. Each layer runs under ``torch.utils.checkpoint``, as the
-reference's ``jax.checkpoint``.
+reference's. Each decoder layer runs under ``torch.utils.checkpoint``,
+as the reference's ``jax.checkpoint``; the encoder's layers do not, as
+the reference's encoder scan is not rematerialized.
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as devmod
 from repro_torch.models import layers as L
 
-_NORMS = ("ln", "q_norm", "k_norm", "final_ln")     # scales, initialized to 0
+# scales, initialized to 0
+_NORMS = ("ln", "q_norm", "k_norm", "final_ln", "norm_scale", "enc_final_ln")
+_STACKS = ("layers", "enc_layers")                  # leaves stacked per layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,35 +118,55 @@ def _moe_shapes(cfg: ArchConfig) -> dict:
                 w_up=(E, D, Fd), w_down=(E, Fd, D))
 
 
+def _mamba_shapes(cfg: ArchConfig) -> dict:
+    D, N = cfg.d_model, cfg.ssm_state
+    Di = cfg.ssm_expand * D
+    if cfg.mamba_version == 1:
+        dt_rank = max(D // 16, 1)
+        return dict(ln=(D,), in_proj=(D, 2 * Di), conv_w=(4, Di),
+                    x_proj=(Di, dt_rank + 2 * N), dt_proj=(dt_rank, Di),
+                    A_log=(Di, N), D_skip=(Di,), out_proj=(Di, D))
+    H = Di // 64                                  # head dim P = 64
+    return dict(ln=(D,), in_proj=(D, 2 * Di + 2 * N + H),
+                conv_w=(4, Di + 2 * N), A_log=(H,), D_skip=(H,),
+                norm_scale=(Di,), out_proj=(Di, D))
+
+
 def _stack(tree: dict, n: int) -> dict:
     return {k: _stack(v, n) if isinstance(v, dict) else (n, *v)
             for k, v in tree.items()}
 
 
-PORTED_FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
-def _family_not_ported(cfg: ArchConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet (ROADMAP.md, "
-        "queue A item 11); the port runs the dense and moe families")
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise _family_not_ported(cfg)
+def _layer_shapes(cfg: ArchConfig) -> dict:
+    """One decoder layer of the config's family."""
+    if cfg.family in ("dense", "vlm"):
+        return dict(attn=_attn_shapes(cfg), mlp=_mlp_shapes(cfg))
+    if cfg.family == "moe":
+        return dict(attn=_attn_shapes(cfg), moe=_moe_shapes(cfg))
+    if cfg.family in ("ssm", "hybrid"):
+        return dict(mamba=_mamba_shapes(cfg))
+    if cfg.family == "encdec":
+        return dict(attn=_attn_shapes(cfg), mlp=_mlp_shapes(cfg),
+                    xattn=_attn_shapes(cfg))
+    raise ValueError(cfg.family)
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
-    """The reference's parameter tree of the dense and moe families, as
-    a nested dict of shapes."""
-    _require_ported(cfg)
-    ffn = (dict(mlp=_mlp_shapes(cfg)) if cfg.family == "dense"
-           else dict(moe=_moe_shapes(cfg)))
-    layer = dict(attn=_attn_shapes(cfg), **ffn)
-    return dict(embed=(cfg.vocab, cfg.d_model),
-                lm_head=(cfg.vocab, cfg.d_model), final_ln=(cfg.d_model,),
-                layers=_stack(layer, cfg.n_layers))
+    """The reference's parameter tree of the config, as a nested dict of
+    shapes."""
+    p = dict(embed=(cfg.vocab, cfg.d_model),
+             lm_head=(cfg.vocab, cfg.d_model), final_ln=(cfg.d_model,),
+             layers=_stack(_layer_shapes(cfg), cfg.n_layers))
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        p["shared_attn"] = _attn_shapes(cfg)
+    if cfg.family == "encdec":
+        enc = _layer_shapes(dataclasses.replace(cfg, family="dense"))
+        p["enc_layers"] = _stack(enc, cfg.n_enc_layers)
+        p["enc_final_ln"] = (cfg.d_model,)
+    return p
 
 
 def _count(tree: dict) -> int:
@@ -152,16 +178,22 @@ def _count(tree: dict) -> int:
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=devmod.DEFAULT):
     """Random float32 parameters from ``seed``, the reference's scheme
     (norm scales 0; ``embed`` unit normal; every other matrix normal over
-    the square root of its (per-layer) input dimension). The numbers
-    differ from the reference's PRNG; tests carry the reference's weights
-    over with ``models.carry``."""
+    the square root of its (per-layer) input dimension; the mamba layers'
+    ``A_log`` is ``log(1..N)`` on each Mamba-1 row and 0 for Mamba-2, and
+    ``D_skip`` is 1). The numbers differ from the reference's PRNG;
+    tests carry the reference's weights over with ``models.carry``."""
     dev = devmod.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
     def make(name: str, shape, stacked: bool) -> torch.Tensor:
-        if name in _NORMS:
+        if name == "A_log" and cfg.mamba_version == 1:      # (.., Di, N)
+            t = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                             device=dev).log().expand(shape).contiguous()
+        elif name in _NORMS or name == "A_log":
             t = torch.zeros(shape, dtype=torch.float32, device=dev)
+        elif name == "D_skip":
+            t = torch.ones(shape, dtype=torch.float32, device=dev)
         else:
             # the reference's per-layer shape[0]: D for a matrix, E for
             # an expert stack
@@ -172,7 +204,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=devmod.DEFAULT):
         return t.requires_grad_()
 
     def walk(tree: dict, stacked: bool) -> dict:
-        return {k: walk(v, stacked or k == "layers") if isinstance(v, dict)
+        return {k: walk(v, stacked or k in _STACKS) if isinstance(v, dict)
                 else make(k, v, stacked) for k, v in sorted(tree.items())}
     return walk(param_shapes(cfg), False)
 
@@ -222,17 +254,33 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                            p["w_down"], top_k=cfg.top_k)
 
 
+def _mamba_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = L.rms_norm(x, p["ln"])
+    fn = L.mamba1_scan if cfg.mamba_version == 1 else L.mamba2_ssd
+    return x + fn(h, p)
+
+
 def _decoder_layer(cfg: ArchConfig, params: dict, x: torch.Tensor,
-                   local: Optional[bool] = None):
+                   local: Optional[bool] = None, enc=None):
     """One decoder layer. ``local`` picks the sliding-window attention
     of a dense layer (default: whenever the config has a window); a moe
-    layer is local whenever the config has a window."""
-    if cfg.family == "dense":
+    layer is local whenever the config has a window. ``enc`` is the
+    encoder's output an encdec layer cross-attends to."""
+    if cfg.family in ("dense", "vlm"):
         local = bool(cfg.window) if local is None else local
         x = _attn_apply(params["attn"], x, cfg, layer_local=local)
         return _mlp_apply(params["mlp"], x)
-    x = _attn_apply(params["attn"], x, cfg, layer_local=bool(cfg.window))
-    return _moe_apply(params["moe"], x, cfg)
+    if cfg.family == "moe":
+        x = _attn_apply(params["attn"], x, cfg, layer_local=bool(cfg.window))
+        return _moe_apply(params["moe"], x, cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return _mamba_apply(params["mamba"], x, cfg)
+    if cfg.family == "encdec":
+        x = _attn_apply(params["attn"], x, cfg, use_rope=False)
+        x = _attn_apply(params["xattn"], x, cfg, kv_x=enc, causal=False,
+                        use_rope=False)
+        return _mlp_apply(params["mlp"], x)
+    raise ValueError(cfg.family)
 
 
 def layer_is_local(cfg: ArchConfig, i: int) -> Optional[bool]:
@@ -269,23 +317,50 @@ def _unstack(tree: dict, n: int) -> list:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The encdec family's encoder: frame embeddings (B, enc_seq, D) in
+    the activation dtype through non-causal, rope-free dense layers, then
+    ``enc_final_ln``."""
+    e = frames.to(cfg.adt)
+    for lp in _unstack(params["enc_layers"], cfg.n_enc_layers):
+        e = _attn_apply(lp["attn"], e, cfg, causal=False, use_rope=False)
+        e = _mlp_apply(lp["mlp"], e)
+    return L.rms_norm(e, params["enc_final_ln"])
+
+
 def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             extra=None) -> torch.Tensor:
-    """Training/prefill forward -> logits (B, S, V) in float32."""
-    _require_ported(cfg)
-    if extra is not None:
-        raise NotImplementedError("extra inputs belong to the vlm/encdec "
-                                  "families (ROADMAP.md, queue A item 11)")
+    """Training/prefill forward -> logits (B, S, V) in float32.
+
+    ``extra``: vlm patch embeddings (B, n_patches, D), prepended to the
+    tokens and stripped before the head; encdec frame embeddings
+    (B, enc_seq, D), the encoder's input. Other families ignore it."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
     if cfg.alt_local_global and cfg.n_layers % 2:
         raise ValueError(f"{cfg.name}: local/global pairs need an even "
                          f"n_layers, got {cfg.n_layers}")
+    if cfg.family in ("vlm", "encdec") and extra is None:
+        raise ValueError(f"the {cfg.family} family needs extra inputs "
+                         "(patch or frame embeddings)")
     x = embed(params, cfg, tokens)
+    if cfg.family == "vlm":
+        x = torch.cat([extra.to(cfg.adt), x], dim=1)
+    enc = encode(params, cfg, extra) if cfg.family == "encdec" else None
+    shared = params.get("shared_attn")
+    every = cfg.shared_attn_every
+
+    def layer(h: torch.Tensor, lp: dict, i: int, local: Optional[bool]):
+        if shared is not None and every and i % every == 0:
+            h = _attn_apply(shared, h, cfg)
+        return _decoder_layer(cfg, lp, h, local, enc)
+
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         local = layer_is_local(cfg, i)
         if torch.is_grad_enabled():
-            x = checkpoint(lambda h, lp=lp, local=local:
-                           _decoder_layer(cfg, lp, h, local), x,
-                           use_reentrant=False)
+            x = checkpoint(layer, x, lp, i, local, use_reentrant=False)
         else:
-            x = _decoder_layer(cfg, lp, x, local)
+            x = layer(x, lp, i, local)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches:, :]
     return head(params, cfg, x)

@@ -1,11 +1,10 @@
 """Model building blocks in plain PyTorch.
 
-Counterpart of ``repro/models/layers.py`` for the attention decoders:
-``rms_norm``, ``rope``, ``gqa_attention``, ``local_block_attention``,
-``swiglu`` and ``moe_block``, op for op as the reference writes them
-(weights f32, cast to the activation type at use; attention logits and
-softmax in f32, masked with -1e30). ``mamba1_scan`` and ``mamba2_ssd``
-are not ported yet (ROADMAP.md, queue A item 11).
+Counterpart of ``repro/models/layers.py``: ``rms_norm``, ``rope``,
+``gqa_attention``, ``local_block_attention``, ``swiglu``, ``moe_block``,
+``mamba1_scan`` and ``mamba2_ssd``, op for op as the reference writes
+them (weights f32, cast to the activation type at use; attention logits
+and softmax in f32, masked with -1e30; the mamba recurrences in f32).
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ------------------------------------------------------------------- norms
@@ -182,3 +182,141 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     comb = disp * gates_e[..., None].to(x.dtype)                # (G,t,E,C)
     yt = torch.einsum("gtec,gecd->gtd", comb, ye)
     return yt.reshape(B, S, D)
+
+
+# ------------------------------------------------------------------- mamba
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) in ``x``'s dtype:
+    ``max(x, 0) + log1p(exp(-|x|))``, with no linear cut-off."""
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def causal_conv4(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution of kernel 4 over axis 1 of (B,S,C):
+    the reference's sum of four shifted products, added in its order."""
+    S = x.shape[1]
+    xpad = F.pad(x, (0, 0, 3, 0))
+    out = 0
+    for i in range(4):
+        out = out + xpad[:, i:i + S, :] * w[i]
+    return out
+
+
+def _chunks(S: int, chunk: int) -> int:
+    """Number of chunks; the reference's reshape refuses a ragged one."""
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"scan chunk {chunk}")
+    return S // chunk
+
+
+def _mamba1_chunk(h: torch.Tensor, A: torch.Tensor, xi: torch.Tensor,
+                  dt: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor):
+    """One chunk of the S6 recurrence, f32. h: (B,Di,N); xi, dt:
+    (B,c,Di); Bc, Cc: (B,c,N) -> (h after the chunk, y (B,c,Di)). The
+    per-position factors are elementwise, so they are formed for the
+    whole chunk at once; the loop carries only ``h = h*dA + dBx``."""
+    dA = torch.exp(dt[..., None] * A)                         # (B,c,Di,N)
+    dBx = (dt * xi)[..., None] * Bc[:, :, None, :]            # (B,c,Di,N)
+    hs = []
+    for t in range(xi.shape[1]):
+        h = h * dA[:, t] + dBx[:, t]
+        hs.append(h)
+    y = torch.einsum("bcin,bcn->bci", torch.stack(hs, 1), Cc)
+    return h, y
+
+
+def mamba1_scan(x: torch.Tensor, p: dict, *, chunk: int = 128):
+    """Mamba-1 (S6) selective scan. x: (B,S,D). ``p``: in_proj (D,2Di),
+    conv_w (4,Di), x_proj (Di,dt_rank+2N), dt_proj (dt_rank,Di), A_log
+    (Di,N), D_skip (Di,), out_proj (Di,D). A sequential scan over S in
+    chunks, each chunk under ``torch.utils.checkpoint`` when gradients
+    are on (the reference's ``jax.checkpoint(chunk_step)``)."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    nchunk = _chunks(S, chunk)
+    dt_rank = p["dt_proj"].shape[0]
+    N = p["A_log"].shape[1]
+
+    xz = x @ p["in_proj"].to(x.dtype)
+    xi, z = xz.chunk(2, dim=-1)                               # (B,S,Di)
+    xi = F.silu(causal_conv4(xi, p["conv_w"].to(x.dtype)))
+
+    proj = xi @ p["x_proj"].to(x.dtype)
+    dt, Bc, Cc = proj.split([dt_rank, N, N], dim=-1)
+    dt = softplus(dt @ p["dt_proj"].to(x.dtype))
+    A = -torch.exp(p["A_log"].to(torch.float32))              # (Di,N)
+
+    xs = [a.to(torch.float32) for a in (xi, dt, Bc, Cc)]
+    h = torch.zeros((B, A.shape[0], N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nchunk):
+        part = [a[:, c * chunk:(c + 1) * chunk] for a in xs]
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_mamba1_chunk, h, A, *part, use_reentrant=False)
+        else:
+            h, y = _mamba1_chunk(h, A, *part)
+        ys.append(y)
+    y = torch.cat(ys, 1).to(x.dtype)
+    y = y + xi * p["D_skip"].to(x.dtype)
+    y = y * F.silu(z)
+    return y @ p["out_proj"].to(x.dtype)
+
+
+def mamba2_ssd(x: torch.Tensor, p: dict, *, chunk: int = 128):
+    """Mamba-2 (SSD) block in the chunked dual form. x: (B,S,D). ``p``:
+    in_proj (D, 2Di+2N+H), conv_w (4, Di+2N), A_log (H,), D_skip (H,),
+    norm_scale (Di,), out_proj (Di,D); head dim P = Di/H.
+
+    As in the reference, the intra-chunk decay is
+    ``where(causal, exp(seg), 0)``: above the diagonal ``seg`` is a
+    positive sum of ``dt*|A|`` that can overflow ``exp`` to inf, which
+    the forward discards and the backward turns into NaN (0 * inf)."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    nb = _chunks(S, chunk)
+    Di = p["norm_scale"].shape[0]
+    H = p["A_log"].shape[0]
+    P = Di // H
+    N = (p["in_proj"].shape[1] - 2 * Di - H) // 2
+
+    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    z, xbc, dt = zxbcdt.split([Di, Di + 2 * N, H], dim=-1)
+    xbc = F.silu(causal_conv4(xbc, p["conv_w"].to(x.dtype)))
+    xi, Bc, Cc = xbc.split([Di, N, N], dim=-1)
+    dt = softplus(dt.to(torch.float32))                       # (B,S,H)
+    A = -torch.exp(p["A_log"].to(torch.float32))              # (H,)
+
+    xh = xi.reshape(B, nb, chunk, H, P).to(torch.float32)
+    Bh = Bc.reshape(B, nb, chunk, N).to(torch.float32)
+    Ch = Cc.reshape(B, nb, chunk, N).to(torch.float32)
+    dth = dt.reshape(B, nb, chunk, H)
+
+    dA = dth * A                                              # (B,nb,c,H)
+    cs = torch.cumsum(dA, dim=2)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]         # (B,nb,c,c,H)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    Lm = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    att = torch.einsum("bncm,bnkm->bnck", Ch, Bh)             # (B,nb,c,c)
+    att = att[..., None] * Lm                                 # (B,nb,c,c,H)
+    y_intra = torch.einsum("bnckh,bnkh,bnkhp->bnchp", att, dth, xh)
+
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)           # (B,nb,c,H)
+    state = torch.einsum("bncm,bnch,bnchp->bnhmp", Bh, dth * decay_to_end,
+                         xh)                                  # (B,nb,H,N,P)
+    chunk_decay = torch.exp(cs[:, :, -1, :])                  # (B,nb,H)
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nb):                 # state entering chunk c
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + state[:, c]
+    h_prev = torch.stack(h_prev, 1)                           # (B,nb,H,N,P)
+    decay_in = torch.exp(cs)                                  # (B,nb,c,H)
+    y_inter = torch.einsum("bncm,bnch,bnhmp->bnchp", Ch, decay_in, h_prev)
+
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    y = y + xh.reshape(B, S, H, P) * p["D_skip"].to(torch.float32)[None, None, :, None]
+    y = y.reshape(B, S, Di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_scale"])
+    return y @ p["out_proj"].to(x.dtype)

@@ -1,25 +1,34 @@
-"""Single-token decode with KV caches (serve_step).
+"""Single-token decode with per-family caches (serve_step).
 
-Counterpart of ``repro/serve/decode.py`` for the attention decoders
-(the ``dense`` and ``moe`` families). The cache is the reference's
-layout, leaves stacked over layers: ``attn.k``/``attn.v`` of shape
-``(L, B, Smax, Kv, hd)`` in the activation dtype. Layer ``i`` reads and
-writes row ``i``; with gemma2's local/global pairs that is the
-reference's ``k[0::2]`` (local, even layers) and ``k[1::2]`` (global,
-odd layers) stacked back in layer order.
+Counterpart of ``repro/serve/decode.py``. The cache is the reference's
+layout, leaves stacked over layers:
+- attention: ``attn.k``/``attn.v`` (L, B, Smax, Kv, hd) in the
+  activation dtype (dense, moe, vlm; encdec's decoder self-attention);
+- Mamba-1 (ssm): ``conv`` (L, B, 3, Di) in the activation dtype and
+  ``ssm`` (L, B, Di, N) in float32;
+- Mamba-2 (hybrid): ``conv`` (L, B, 3, Di+2N), ``ssm`` (L, B, H, N, 64),
+  and ``shared.k``/``shared.v`` with one row per application site of the
+  shared attention block (``ceil(L / shared_attn_every)``): layer ``i``'s
+  block reads and writes site ``i // shared_attn_every``;
+- encdec: ``cross.k``/``cross.v`` (L, B, enc_seq, Kv, hd), the encoder's
+  keys and values, which ``prefill_cross_cache`` computes once.
+Layer ``i`` reads and writes row ``i``; with gemma2's local/global pairs
+that is the reference's ``k[0::2]`` (local, even layers) and ``k[1::2]``
+(global, odd layers) stacked back in layer order.
 
-``decode_step`` writes each layer's new key and value into the cache
-IN PLACE at ``pos`` (``index_copy_``), where the reference returns a new
-cache; ``pos`` may be a 0-d tensor on the cache's device, so a step reads
-nothing back to the host. The mamba caches (``ssm``, ``hybrid``), the
-encoder-decoder's cross cache (``prefill_cross_cache``) and the vlm's
-patch prefix are not ported yet (ROADMAP.md, queue A item 11).
+``decode_step`` updates the cache IN PLACE (``index_copy_`` at ``pos``
+for keys and values, ``copy_`` for the mamba states), where the
+reference returns a new cache; ``pos`` may be a 0-d tensor on the
+cache's device, so a step reads nothing back to the host. As in the
+reference, the vlm family decodes as a dense decoder, without the patch
+prefix its ``forward`` prepends.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import device as devmod
 from repro_torch.models import arch as A
@@ -27,53 +36,83 @@ from repro_torch.models import layers as L
 from repro_torch.models.arch import ArchConfig
 
 
-def _require_attention(cfg: ArchConfig) -> None:
-    if cfg.family not in A.PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family's decode cache ({cfg.name}) is not "
-            "ported yet (ROADMAP.md, queue A item 11); the port decodes the "
-            "dense and moe families")
-
-
 # ----------------------------------------------------------------- caches
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None, *,
                device=devmod.DEFAULT) -> dict:
-    """Zeroed ``{"attn": {"k", "v"}}``, each ``(L, B, max_seq, Kv, hd)``
-    in ``dtype`` (default: the activation dtype) on ``device``."""
-    _require_attention(cfg)
+    """The family's zeroed cache (module docstring) on ``device``; the
+    attention and conv leaves in ``dtype`` (default: the activation
+    dtype), the ssm states in float32."""
     dev = devmod.resolve(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.hd)
     dtype = dtype or cfg.adt
-    return dict(attn=dict(k=torch.zeros(shape, dtype=dtype, device=dev),
-                          v=torch.zeros(shape, dtype=dtype, device=dev)))
+    Lx, B = cfg.n_layers, batch
+    Di = cfg.ssm_expand * cfg.d_model
+    N = cfg.ssm_state
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def kv(n, s):
+        return dict(k=zeros(n, B, s, cfg.n_kv, cfg.hd),
+                    v=zeros(n, B, s, cfg.n_kv, cfg.hd))
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        return dict(attn=kv(Lx, max_seq))
+    if cfg.family == "ssm":
+        return dict(conv=zeros(Lx, B, 3, Di),
+                    ssm=zeros(Lx, B, Di, N, dt=torch.float32))
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        sites = -(-cfg.n_layers // every) if every else 0
+        return dict(conv=zeros(Lx, B, 3, Di + 2 * N),
+                    ssm=zeros(Lx, B, Di // 64, N, 64, dt=torch.float32),
+                    shared=kv(max(sites, 1), max_seq))
+    if cfg.family == "encdec":
+        return dict(attn=kv(Lx, max_seq), cross=kv(Lx, cfg.enc_seq))
+    raise ValueError(cfg.family)
 
 
-def prefill_cross_cache(params, cfg: ArchConfig, enc_out):
-    raise NotImplementedError(
-        "the encdec family's cross-attention cache is not ported yet "
-        "(ROADMAP.md, queue A item 11)")
+@torch.no_grad()
+def prefill_cross_cache(params: dict, cfg: ArchConfig,
+                        enc_out: torch.Tensor) -> dict:
+    """Encoder-side keys and values of every decoder layer's
+    cross-attention: ``{"k", "v"}``, each (L, B, enc_seq, Kv, hd) in
+    ``enc_out``'s dtype. ``enc_out`` is the encoder's output
+    (``models.arch.encode``)."""
+    B, S, _ = enc_out.shape
+    xattn = params["layers"]["xattn"]
+
+    def proj(w):
+        return torch.stack([(enc_out @ w[i].to(enc_out.dtype))
+                            .reshape(B, S, cfg.n_kv, cfg.hd)
+                            for i in range(cfg.n_layers)])
+    return dict(k=proj(xattn["wk"]), v=proj(xattn["wv"]))
 
 
 # ------------------------------------------------------------ attn decode
 def _attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, kc: torch.Tensor,
-                 vc: torch.Tensor, pos: torch.Tensor, *,
-                 local: bool = False) -> torch.Tensor:
-    """x: (B,1,D); kc/vc: (B,Smax,Kv,hd), written in place at ``pos``.
+                 vc: torch.Tensor, pos: torch.Tensor, *, local: bool = False,
+                 cross: bool = False, use_rope: bool = True) -> torch.Tensor:
+    """x: (B,1,D); kc/vc: (B,Smax,Kv,hd), written in place at ``pos``
+    (a cross-attention cache is read whole, unmasked, and not written).
     Returns the residual stream after attention."""
     B = x.shape[0]
     h = L.rms_norm(x, p["ln"])
     q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, cfg.n_heads, cfg.hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, 1, cfg.n_kv, cfg.hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, 1, cfg.n_kv, cfg.hd)
-    if cfg.qk_norm:
+    if not cross:
+        k = (h @ p["wk"].to(h.dtype)).reshape(B, 1, cfg.n_kv, cfg.hd)
+        v = (h @ p["wv"].to(h.dtype)).reshape(B, 1, cfg.n_kv, cfg.hd)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, p["q_norm"])
+            k = L.rms_norm(k, p["k_norm"])
+        if use_rope:
+            pp = pos.expand(B, 1)
+            q = L.rope(q, pp, cfg.rope_theta)
+            k = L.rope(k, pp, cfg.rope_theta)
+        at = pos.reshape(1)
+        kc.index_copy_(1, at, k.to(kc.dtype))
+        vc.index_copy_(1, at, v.to(vc.dtype))
+    elif cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"])
-        k = L.rms_norm(k, p["k_norm"])
-    pp = pos.expand(B, 1)
-    q = L.rope(q, pp, cfg.rope_theta)
-    k = L.rope(k, pp, cfg.rope_theta)
-    at = pos.reshape(1)
-    kc.index_copy_(1, at, k.to(kc.dtype))
-    vc.index_copy_(1, at, v.to(vc.dtype))
 
     Smax = kc.shape[1]
     g = cfg.n_heads // cfg.n_kv
@@ -82,15 +121,75 @@ def _attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, kc: torch.Tensor,
     logits = logits / math.sqrt(cfg.hd)
     if cfg.attn_softcap:
         logits = torch.tanh(logits / cfg.attn_softcap) * cfg.attn_softcap
-    kpos = torch.arange(Smax, device=x.device)
-    mask = kpos <= pos
-    if local and cfg.window:
-        mask = mask & (kpos > pos - cfg.window)
-    logits = torch.where(mask, logits, -1e30)
+    if not cross:
+        kpos = torch.arange(Smax, device=x.device)
+        mask = kpos <= pos
+        if local and cfg.window:
+            mask = mask & (kpos > pos - cfg.window)
+        logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("bhgqk,bkhd->bqhgd", probs, vc)
     o = o.reshape(B, 1, cfg.n_heads * cfg.hd)
     return x + o @ p["wo"].to(h.dtype)
+
+
+# ----------------------------------------------------------- mamba decode
+def _conv_step(conv: torch.Tensor, new: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """One step of the kernel-4 causal conv: ``conv`` (B,3,C) holds the
+    last three inputs and takes ``new`` (B,C) in place -> silu(conv)."""
+    hist = torch.cat([conv, new[:, None, :]], 1)              # (B,4,C)
+    conv.copy_(hist[:, 1:])
+    return F.silu(torch.einsum("bki,ki->bi", hist, w))
+
+
+def _mamba1_decode(p: dict, x: torch.Tensor, conv: torch.Tensor,
+                   ssm: torch.Tensor) -> torch.Tensor:
+    """One Mamba-1 step. As the reference's decode (and unlike its
+    forward, which casts first), ``dt * xi`` multiplies in the activation
+    dtype and the product is cast to float32."""
+    h = L.rms_norm(x, p["ln"])[:, 0]
+    xi, z = (h @ p["in_proj"].to(h.dtype)).chunk(2, dim=-1)
+    xi = _conv_step(conv, xi, p["conv_w"].to(h.dtype))
+    dt_rank = p["dt_proj"].shape[0]
+    N = p["A_log"].shape[1]
+    dt, Bc, Cc = (xi @ p["x_proj"].to(h.dtype)).split([dt_rank, N, N], -1)
+    dt = L.softplus(dt @ p["dt_proj"].to(h.dtype))
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    dA = torch.exp(dt.to(torch.float32)[..., None] * A)
+    dBx = (dt * xi).to(torch.float32)[..., None] \
+        * Bc.to(torch.float32)[:, None, :]
+    ssm.copy_(ssm * dA + dBx)
+    y = torch.einsum("bin,bn->bi", ssm, Cc.to(torch.float32)).to(h.dtype)
+    y = y + xi * p["D_skip"].to(h.dtype)
+    y = y * F.silu(z)
+    return x + (y @ p["out_proj"].to(h.dtype))[:, None]
+
+
+def _mamba2_decode(p: dict, x: torch.Tensor, conv: torch.Tensor,
+                   ssm: torch.Tensor) -> torch.Tensor:
+    """One Mamba-2 step; ``dt`` through softplus in float32."""
+    B = x.shape[0]
+    h = L.rms_norm(x, p["ln"])[:, 0]
+    Di = p["norm_scale"].shape[0]
+    H = p["A_log"].shape[0]
+    P = Di // H
+    N = (p["in_proj"].shape[1] - 2 * Di - H) // 2
+    z, xbc, dt = (h @ p["in_proj"].to(h.dtype)).split([Di, Di + 2 * N, H], -1)
+    xbc = _conv_step(conv, xbc, p["conv_w"].to(h.dtype))
+    xi, Bc, Cc = xbc.split([Di, N, N], -1)
+    dt = L.softplus(dt.to(torch.float32))                     # (B,H)
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    dA = torch.exp(dt * A)                                    # (B,H)
+    xh = xi.reshape(B, H, P).to(torch.float32)
+    dBx = dt[..., None, None] * Bc.to(torch.float32)[:, None, :, None] \
+        * xh[:, :, None, :]                                   # (B,H,N,P)
+    ssm.copy_(ssm * dA[..., None, None] + dBx)
+    y = torch.einsum("bhnp,bn->bhp", ssm, Cc.to(torch.float32))
+    y = y + xh * p["D_skip"].to(torch.float32)[None, :, None]
+    y = y.reshape(B, Di).to(h.dtype)
+    y = L.rms_norm(y * F.silu(z), p["norm_scale"])
+    return x + (y @ p["out_proj"].to(h.dtype))[:, None]
 
 
 # -------------------------------------------------------------- serve step
@@ -99,16 +198,43 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 tokens: torch.Tensor, pos):
     """tokens (B,1), pos: an int or a 0-d integer tensor -> (logits
     (B,1,V) float32, cache). The cache is updated in place and returned."""
-    _require_attention(cfg)
-    kc, vc = cache["attn"]["k"], cache["attn"]["v"]
-    pos = torch.as_tensor(pos, device=kc.device)
+    fam = cfg.family
+    if fam not in A.FAMILIES:
+        raise ValueError(fam)
+    pos = torch.as_tensor(pos, device=tokens.device)
     x = A.embed(params, cfg, tokens)
-    for i, lp in enumerate(A._unstack(params["layers"], cfg.n_layers)):
-        local = A.layer_is_local(cfg, i)
-        local = bool(cfg.window) if local is None else local
-        x = _attn_decode(lp["attn"], cfg, x, kc[i], vc[i], pos, local=local)
-        if cfg.family == "moe":
-            x = A._moe_apply(lp["moe"], x, cfg)
-        else:
+    layers = A._unstack(params["layers"], cfg.n_layers)
+    if fam in ("dense", "moe", "vlm"):
+        kc, vc = cache["attn"]["k"], cache["attn"]["v"]
+        for i, lp in enumerate(layers):
+            local = A.layer_is_local(cfg, i)
+            local = bool(cfg.window) if local is None else local
+            x = _attn_decode(lp["attn"], cfg, x, kc[i], vc[i], pos, local=local)
+            if fam == "moe":
+                x = A._moe_apply(lp["moe"], x, cfg)
+            else:
+                x = A._mlp_apply(lp["mlp"], x)
+    elif fam == "ssm":
+        for i, lp in enumerate(layers):
+            x = _mamba1_decode(lp["mamba"], x, cache["conv"][i],
+                               cache["ssm"][i])
+    elif fam == "hybrid":
+        every = cfg.shared_attn_every
+        sk, sv = cache["shared"]["k"], cache["shared"]["v"]
+        for i, lp in enumerate(layers):
+            if every and i % every == 0:
+                site = i // every
+                x = _attn_decode(params["shared_attn"], cfg, x, sk[site],
+                                 sv[site], pos)
+            x = _mamba2_decode(lp["mamba"], x, cache["conv"][i],
+                               cache["ssm"][i])
+    else:                                                     # encdec
+        kc, vc = cache["attn"]["k"], cache["attn"]["v"]
+        xk, xv = cache["cross"]["k"], cache["cross"]["v"]
+        for i, lp in enumerate(layers):
+            x = _attn_decode(lp["attn"], cfg, x, kc[i], vc[i], pos,
+                             use_rope=False)
+            x = _attn_decode(lp["xattn"], cfg, x, xk[i], xv[i], pos,
+                             cross=True, use_rope=False)
             x = A._mlp_apply(lp["mlp"], x)
     return A.head(params, cfg, x), cache

@@ -79,15 +79,20 @@ class TrainStep:
             ev.record()
             self._events.append(ev)
 
-    def _pod_grads(self, params, leaves, tokens, labels, out) -> torch.Tensor:
+    def _pod_grads(self, params, leaves, tokens, labels, extra,
+                   out) -> torch.Tensor:
         """One pod's loss; its gradient, averaged over the microbatches,
-        goes into ``out`` (M,) in leaf order."""
+        goes into ``out`` (M,) in leaf order. ``extra`` (vlm patches,
+        encdec frames) splits with the tokens, or is None."""
         mb = self.tcfg.microbatches
-        tk = tokens.reshape(mb, tokens.shape[0] // mb, -1)
-        lb = labels.reshape(mb, labels.shape[0] // mb, -1)
+        b = tokens.shape[0] // mb
+        tk = tokens.reshape(mb, b, -1)
+        lb = labels.reshape(mb, b, -1)
+        ex = extra.reshape(mb, b, *extra.shape[1:]) if extra is not None \
+            else [None] * mb
         lsum = None
         for j in range(mb):
-            loss = loss_fn(params, self.cfg, tk[j], lb[j])
+            loss = loss_fn(params, self.cfg, tk[j], lb[j], extra=ex[j])
             grads = torch.autograd.grad(loss, leaves)
             o = 0
             for leaf, g in zip(leaves, grads):
@@ -121,6 +126,7 @@ class TrainStep:
         dev = leaves[0].device
         n, mb = self.n_pods, self.tcfg.microbatches
         tokens, labels = batch["tokens"], batch["labels"]
+        extra = batch.get("extra")
         if tokens.shape[0] % (n * mb):
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{n} pods x {mb} microbatches")
@@ -134,8 +140,10 @@ class TrainStep:
         self._mark(dev)
         losses = []
         for p in range(n):
-            losses.append(self._pod_grads(params, leaves, tokens[p * b:(p + 1) * b],
-                                          labels[p * b:(p + 1) * b], self.grads[p]))
+            rows = slice(p * b, (p + 1) * b)
+            losses.append(self._pod_grads(
+                params, leaves, tokens[rows], labels[rows],
+                None if extra is None else extra[rows], self.grads[p]))
             self._mark(dev)
         g = self.reduced = self._reduce(self.grads)
         self._mark(dev)

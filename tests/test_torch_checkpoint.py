@@ -166,6 +166,28 @@ def test_train_resume_restores_params_and_opt(tmp_path, capsys):
                                [r["loss"] for r in whole.log[2:]], rtol=1e-5)
 
 
+def test_train_resume_of_a_mamba_run(tmp_path, capsys):
+    """falcon-mamba at smoke size through the launcher's CLI on the CPU:
+    a 2-step run resumed to 3 restores its state bit for bit and gives
+    the uninterrupted run's step-3 loss."""
+    common = ["--arch", "falcon_mamba_7b", "--smoke", "--batch", "2",
+              "--seq", "16", "--ckpt-every", "2", "--log-every", "1",
+              "--device", "cpu"]
+    d = str(tmp_path / "ck")
+    first = ptrain.main(common + ["--ckpt", d, "--steps", "2"])
+    cfg = pconfigs.get("falcon_mamba_7b", smoke=True)
+    params, opt = init_train_state(cfg, 1, device="cpu")
+    saved = ckpt.restore(ckpt.latest(d)[1], {"params": params, "opt": opt})
+    assert _same(saved, {"params": first.params, "opt": first.opt})
+    capsys.readouterr()
+    resumed = ptrain.main(common + ["--ckpt", d, "--steps", "3", "--resume"])
+    assert "[resume] step 2 from" in capsys.readouterr().out
+    whole = ptrain.main(common + ["--steps", "3"])
+    assert [r["step"] for r in resumed.log] == [3]
+    np.testing.assert_allclose(resumed.log[0]["loss"], whole.log[2]["loss"],
+                               rtol=1e-5)
+
+
 def test_train_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="item 9"):
         ptrain.main(COMMON + ["--data", "2"])

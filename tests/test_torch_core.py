@@ -85,7 +85,8 @@ def test_cong_pipeline_bit_exact(n_ports, params):
     rates = rng.choice([25, 40, 100, 200, 400], n_ports).tolist()
     r_tb, p_tb = _tables_pair(rates, buffer_bytes=10**9, sample_interval_us=200)
     rp, pp = rcong.CongParams(**params), pcong.CongParams(**params)
-    r_st, p_st = rcong.CongState.init(n_ports), pcong.CongState.init(n_ports)
+    r_st = rcong.CongState.init(n_ports)
+    p_st = pcong.CongState.init(n_ports, device="cpu")
     saw_negative = False
     for tick in range(12):
         # bursts then drains, so the trend swings negative
@@ -106,6 +107,21 @@ def test_cong_pipeline_bit_exact(n_ports, params):
 
 
 # ---------------------------------------------------------------- select
+def test_tables_and_registers_need_a_card_unless_cpu_is_asked(monkeypatch):
+    """The bootstrap tables and the congestion registers default to the
+    card like every entry point: without one they raise unless the CPU
+    is asked for; a shape-only ``meta`` state still builds."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: ptables.level_score_table(16),
+                 lambda: ptables.capacity_class_thresholds(400),
+                 lambda: ptables.queue_thresholds(10**9),
+                 lambda: pcong.CongState.init(4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert ptables.queue_thresholds(10**9, device="cpu").device.type == "cpu"
+    assert pcong.CongState.init(4, device="meta").trend.is_meta
+
+
 def test_fmix32_hash_edges():
     rng = np.random.default_rng(0)
     x = np.concatenate([HASH_EDGES, rng.integers(0, 1 << 32, 4096)])

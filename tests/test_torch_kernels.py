@@ -65,7 +65,8 @@ def test_cong_update_matches_pallas_and_ref(jref, n_ports, params):
     r_tb = jref.tables.bootstrap_tables(rates, **kw)
     p_tb = bootstrap_tables(rates, device="cpu", **kw)
     rp, pp = jref.cong.CongParams(**params), CongParams(**params)
-    r_st, p_st = jref.cong.CongState.init(n_ports), CongState.init(n_ports)
+    r_st, p_st = (jref.cong.CongState.init(n_ports),
+                  CongState.init(n_ports, device="cpu"))
     ring = torch.full((n_ports, 16), -7, dtype=torch.int32)   # a short hist_c
     launches = ops.counts()["cong_update"]
     for tick in range(6):

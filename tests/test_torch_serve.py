@@ -129,19 +129,45 @@ def test_init_cache_layout_and_refusals():
     assert c["attn"]["k"].dtype == torch.bfloat16
     assert pdecode.init_cache(cfg, 1, 2, torch.float32,
                               device="cpu")["attn"]["v"].dtype == torch.float32
+    # every family has its cache now; a family the reference does not
+    # know is refused by both packages' decode
     for arch in ("falcon_mamba_7b", "zamba2_1p2b", "whisper_medium",
                  "internvl2_2b"):
-        rcfg = parch.ArchConfig(**dataclasses.asdict(configs.get(arch, smoke=True)))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            pdecode.init_cache(rcfg, 1, 4, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            pdecode.decode_step({}, rcfg, {}, torch.zeros((1, 1), dtype=torch.long), 0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pdecode.prefill_cross_cache({}, cfg, None)
+        assert pdecode.init_cache(pconfigs.get(arch, smoke=True), 1, 4,
+                                  device="cpu")
+    odd = dataclasses.replace(cfg, family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        pdecode.init_cache(odd, 1, 4, device="cpu")
+    with pytest.raises(ValueError, match="rnn"):
+        pdecode.decode_step({}, odd, {}, torch.zeros((1, 1), dtype=torch.long), 0)
 
 
-def test_serve_cli_on_the_cpu(capsys):
-    pserve.main(["--arch", "mixtral-8x7b", "--smoke", "--batch", "2",
+def test_serve_refuses_encdec_as_the_reference(monkeypatch):
+    """Both launchers refuse whisper with the same message (the example
+    it names is not in the repo)."""
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "whisper_medium",
+                                      "--smoke"])
+    with pytest.raises(SystemExit) as want:
+        rserve.main()
+    with pytest.raises(SystemExit) as got:
+        pserve.main(["--arch", "whisper_medium", "--smoke", "--device", "cpu"])
+    assert str(got.value) == str(want.value) == \
+        "use examples/whisper_serve.py for enc-dec serving"
+
+
+def test_vlm_serve_decodes_without_patches_as_the_reference():
+    """internvl2 at smoke size: the generated tokens are the reference's
+    (both decode as a dense decoder, with no patch prefix)."""
+    rcfg, pcfg, rp, pp = _carried("internvl2_2b", "float32", 9)
+    prompt = np.random.default_rng(10).integers(0, rcfg.vocab, (2, 8))
+    want = rserve.prefill_then_decode(rcfg, rp, jnp.asarray(prompt, jnp.int32), 8)
+    got = pserve.prefill_then_decode(pcfg, pp, torch.from_numpy(prompt), 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "internvl2-2b"])
+def test_serve_cli_on_the_cpu(capsys, arch):
+    pserve.main(["--arch", arch, "--smoke", "--batch", "2",
                  "--prompt-len", "4", "--gen", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "generated (2, 3) in" in out and "tok/s" in out

@@ -130,22 +130,20 @@ def test_port_config_equals_reference(jref):
     for smoke in (False, True):
         want = dataclasses.asdict(jref.configs.get("qwen3_4b", smoke=smoke))
         assert dataclasses.asdict(pconfigs.get("qwen3-4b", smoke=smoke)) == want
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pconfigs.get("falcon_mamba_7b")
+        want = dataclasses.asdict(jref.configs.get("falcon_mamba_7b",
+                                                   smoke=smoke))
+        assert dataclasses.asdict(pconfigs.get("falcon-mamba-7b",
+                                               smoke=smoke)) == want
+    assert pconfigs.ARCH_IDS == jref.configs.ARCH_IDS
 
 
 @pytest.mark.parametrize("arch", REF_ARCHS)
 def test_param_count_from_shapes_matches_reference(jref, arch):
-    """Dense and moe configs count as the reference does, in total and
-    active per token (moe: top_k of n_experts experts); the other
-    families' shapes are not ported and raise."""
+    """Every config counts as the reference does, in total and active
+    per token (moe: top_k of n_experts experts)."""
     for smoke in (False, True):
         rcfg = jref.configs.get(arch, smoke=smoke)
         pcfg = _port_cfg(rcfg)
-        if rcfg.family not in ("dense", "moe"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                pcfg.param_count()
-            continue
         assert pcfg.param_count() == rcfg.param_count()
         assert pcfg.active_param_count() == rcfg.active_param_count()
 
@@ -179,21 +177,32 @@ def test_param_tree_and_flat_order_match_jax(jref):
 
 
 def test_other_families_raise(jref):
-    """The ssm, hybrid, encdec and vlm families are not ported: their
-    configs, parameters, forward and batches refuse, naming the item."""
+    """The ssm, hybrid, encdec and vlm families run (their configs,
+    parameters, forward and batches); what the reference cannot run
+    still raises: a family it does not know, a vlm or encdec forward
+    without its patch or frame embeddings, a mamba scan over a sequence
+    that is not a whole number of chunks."""
     for arch in ("falcon_mamba_7b", "zamba2_1p2b", "whisper_medium",
                  "internvl2_2b"):
         cfg = _port_cfg(jref.configs.get(arch, smoke=True))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            parch.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            parch.forward({}, cfg, torch.zeros((1, 2), dtype=torch.long))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            pconfigs.get(arch)
-    for arch in ("whisper_medium", "internvl2_2b"):
-        cfg = _port_cfg(jref.configs.get(arch, smoke=True))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            batch_at(cfg, 0, batch=1, seq=4, device="cpu")
+        assert dataclasses.asdict(pconfigs.get(arch, smoke=True)) \
+            == dataclasses.asdict(cfg)
+        params = parch.init_params(cfg, device="cpu")
+        b = batch_at(cfg, 0, batch=1, seq=4, device="cpu")
+        assert ("extra" in b) == (cfg.family in ("vlm", "encdec"))
+        with torch.no_grad():
+            logits = parch.forward(params, cfg, b["tokens"], extra=b.get("extra"))
+        assert logits.shape == (1, 4, cfg.vocab)
+        if "extra" in b:
+            with pytest.raises(ValueError, match="extra inputs"):
+                parch.forward(params, cfg, b["tokens"])
+        if cfg.family in ("ssm", "hybrid"):
+            with pytest.raises(ValueError, match="multiple of the scan chunk"):
+                parch.forward(params, cfg, torch.zeros((1, 130), dtype=torch.long))
+    odd = dataclasses.replace(_port_cfg(_smoke(jref, "float32")), family="rnn")
+    for call in (odd.param_count, lambda: parch.forward({}, odd, None)):
+        with pytest.raises(ValueError, match="rnn"):
+            call()
 
 
 # ------------------------------------------------------------------ forward
