@@ -25,22 +25,23 @@ the script exits non-zero and prints no result line. Phases:
    per pair (the sweep's ``pair_policy``) on the merged world of the
    fig5 group and at the bulk shape; a ``lcmp_decide`` call with 9
    candidates must raise on the card;
-4. run: every run of ``RUNS`` through ``run_experiment`` (fig5's
-   testbed8 row with all its policies, wan2000 lcmp and ecmp, fig10's CC
-   laws, the failover, fig_multipath's fluid rows): FCT slowdown and
-   completion against ``REFERENCE`` within the bands, wall time, peak
-   memory and the kernels' launch counts, which must show one
+4. run: the runs of ``ALONE`` through ``run_experiment`` (fig5's
+   testbed8 lcmp, ecmp, wcmp and matchrdma, fig10's CC laws,
+   fig_multipath's fluid rows but the re-decision cells of phase sweep):
+   FCT slowdown and completion against ``REFERENCE`` within the bands,
+   wall time, peak memory and the kernels' launch counts, which must show one
    ``monitor_tick`` and one ``route_arrivals`` launch a step, one
    ``decide`` launch per trip step and re-decision epoch, no standalone
-   entry and no plain version; the reference's ``ORDERINGS`` must hold;
-5. packet: every run of ``PACKET_RUNS`` (the packet engine on
-   fidelity_bench's testbed8 cell, the full-size wan2000, the failover
-   with go-back-N, fig_multipath's packet rows with the flowlet plane
+   entry and no plain version; the other runs of ``RUNS`` are cells of
+   phase sweep's groups;
+5. packet: the runs of ``PACKET_ALONE`` (the packet engine on
+   fidelity_bench's testbed8 lcmp cell, the full-size wan2000, the
+   failover with go-back-N, fig_multipath's packet rows with the flowlet plane
    armed) the same way against ``PACKET_REFERENCE``: one
    ``monitor_tick`` and one ``route_arrivals`` launch a slot, one
    ``decide`` per trip step and per slot while the flowlet plane is
-   armed; hop queues non-negative and inside the buffer;
-   ``PACKET_ORDERINGS`` must hold;
+   armed; hop queues non-negative and inside the buffer (its testbed8
+   ecmp cell runs in phase packet_sweep's grid);
 6. profile: where a testbed8 lcmp fluid step's and a packet slot's time
    goes (torch.profiler): wall and device-busy time per step, idle
    share, kernels per step, the two fused kernels' and ``index_add_``'s
@@ -50,9 +51,11 @@ the script exits non-zero and prints no result line. Phases:
    ``run_sweep`` as one merged world: one ``monitor_tick`` and one
    ``route_arrivals`` launch a step for the whole group, ``decide`` per
    trip step and epoch, no plain version; each cell against its
-   reference number within the bands and against its sequential run to
-   the printed digits; the batched wall time against the cells'
-   sequential sum, peak memory; then the profile of a merged fig5 step;
+   reference number within the bands, and each cell that phase run ran
+   alone against that run to the printed digits; the batched wall time
+   beside phase run's times for those cells, peak memory; then the
+   profile of a merged fig5 step; every run of ``RUNS`` driven alone or
+   as a cell, and the reference's ``ORDERINGS`` on their numbers;
 8. packet_sweep: fidelity_bench's grid (2 scenarios x 3 policies x both
    engines, 12 cells in 4 groups) through one ``run_sweep`` at its
    default and quick scales: the launch counts per group, each cell
@@ -61,7 +64,8 @@ the script exits non-zero and prints no result line. Phases:
    those runs; the log-space Pearson r of packet against fluid against
    the reference's (the paper's 0.95 bar is reached at the
    quick scale only, as in the reference); LCMP below ECMP on testbed8
-   under both engines;
+   under both engines; every run of ``PACKET_RUNS`` driven alone or as a
+   cell, and the reference's ``PACKET_ORDERINGS`` on their numbers;
 9. sanitize: the physics-invariant sanitizer at tests/test_sanitize.py's
    spec (testbed8, load 0.7, 40 ms) on both engines: a checked run's
    final state equals a checks-off run's bit for bit; neither makes a
@@ -71,9 +75,8 @@ the script exits non-zero and prints no result line. Phases:
    ``tests/torch_mutations.py`` fires under its own name on both
    engines, ``signal_causality`` through a negated ``path_sig_delay``
    and ``pfc_lossless`` through a patched ``pfc_gate`` (packet,
-   ``pairs="all"``, a 2e5-byte buffer); the checked wall time of
-   ``RUNS["testbed8/lcmp"]`` and ``PACKET_RUNS["packet/testbed8/lcmp"]``
-   beside phase run's unchecked time, with the same numbers;
+   ``pairs="all"``, a 2e5-byte buffer); each seeded bug corrupts every
+   step from step 0, so its run stops at ``MUTATION_STEPS``;
 10. cosim: fig_training's design point (the degraded wan2000 at load
    0.7, bg_load 0.15, seed 9, 400 ms, qwen3-4b and gemma2-9b x ecmp,
    wcmp, fatpaths, matchrdma, lcmp x both engines: 20 cells, two merged
@@ -91,8 +94,8 @@ the script exits non-zero and prints no result line. Phases:
    whole cache equal to the same run through the plain versions on the
    card, bit for bit; a colliding batch's cache equal to the CPU's;
    more than 8 candidates refused;
-12. device_vs_cpu: testbed8 lcmp, testbed8_failover lcmp (a trip at
-   50 ms), a 3-cell sweep group, and the packet engine's testbed8 lcmp
+12. device_vs_cpu: 50 ms of testbed8 lcmp, testbed8_failover lcmp (a
+   trip at 25 ms), a 3-cell sweep group, and the packet engine's testbed8 lcmp
    and failover runs on the card and on the CPU (plain versions) must
    route the same flows the same way;
 13. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
@@ -116,8 +119,9 @@ the script exits non-zero and prints no result line. Phases:
    reference's) against the dense-family forward of the same parameters,
    and its forward with patches finite; the two mamba configurations'
    oracle in float32 on the same weights (``ORACLE_F32``; their bf16
-   distances recorded); gemma2-9b on a 4160-token prompt, its last 64
-   decode positions past the 4096-token window against ``forward``;
+   distances recorded); gemma2-9b (2 layers: one local, one global) on a
+   4160-token prompt, its last 64 decode positions past the 4096-token
+   window against ``forward``;
    ``local_block_attention`` against windowed ``gqa_attention`` at
    gemma2's shapes (S = 12288); the hybrid gradient: one zamba2-1.2b
    train step at full width (1 layer) on 4096 tokens, its loss finite
@@ -130,7 +134,7 @@ the script exits non-zero and prints no result line. Phases:
    tokens/s, ms per decode step, peak memory;
 17. launch_train: the training launcher's loop at full width on one
    4096-token sequence, 3 steps of gemma2-9b (4 layers), mixtral-8x7b
-   (1 layer), falcon-mamba-7b (4 layers) and whisper-medium (full
+   (1 layer), falcon-mamba-7b (1 layer) and whisper-medium (full
    depth, its frames in the batch): finite losses, step time, tokens/s,
    peak memory; then its checkpoints at the smoke size of qwen3-4b,
    falcon-mamba-7b and whisper-medium: bit-exact restores, resume from
@@ -299,6 +303,18 @@ PACKET_REFERENCE = {"packet/testbed8/lcmp": (1.367, 8.185, 1918, 1918),
                     "packet/failover/lcmp": (4.334, 15.60, 1869, 1870),
                     "packet/staleness/fatpaths": (5.991, 58.38, 2578, 2578),
                     "packet/staleness/amp": (41.74, 43.21, 2578, 2578)}
+# the runs that phases run and packet drive alone through run_experiment.
+# The others are cells of a group of SWEEPS or of the fidelity grid, which
+# drive them through run_sweep and hold them to the same reference numbers;
+# testbed8/lcmp, testbed8/ecmp and packet/testbed8/lcmp run both ways, so
+# that a merged cell is held to its run alone on the card
+ALONE = ("testbed8/lcmp", "testbed8/ecmp", "testbed8/wcmp",
+         "testbed8/matchrdma", "fig10/lcmp/dctcp", "fig10/lcmp/timely",
+         "fig10/lcmp/hpcc", "staleness/amp", "wan2000_deg/lcmp",
+         "wan2000_deg/fatpaths")
+PACKET_ALONE = ("packet/testbed8/lcmp", "packet/wan2000/lcmp",
+                "packet/wan2000/ecmp", "packet/failover/lcmp",
+                "packet/staleness/fatpaths", "packet/staleness/amp")
 PACKET_ORDERINGS = [("packet/testbed8/lcmp", "packet/testbed8/ecmp", "p50"),
                     ("packet/testbed8/lcmp", "packet/testbed8/ecmp", "p99"),
                     ("packet/wan2000/lcmp", "packet/wan2000/ecmp", "p50"),
@@ -343,8 +359,13 @@ FIDELITY_PEARSON = {"fidelity": 0.8983, "fidelity_quick": 0.9631}
 # paper's testbed-vs-NS-3 bar, which the reference reaches at the quick
 # scale only
 PEARSON_BAND, PAPER_PEARSON = 0.02, 0.95
-# phase sanitize: tests/test_sanitize.py's spec (396 flows, 400 steps)
+# phase sanitize: tests/test_sanitize.py's spec (396 flows, 400 steps); a
+# seeded bug corrupts the state at every step, so its run is cut to the
+# first MUTATION_STEPS steps
 SANITIZE = dict(topology="testbed8", load=0.7, duration_us=40_000)
+MUTATION_STEPS = 100
+# phase device_vs_cpu: the length of each run on the card and on the CPU
+DEVICE_VS_CPU_US = 50_000
 # phase cosim: fig_training's design point at its default scale
 # (benchmarks/figures.py fig_training: the degraded wan2000, bg_load 0.15,
 # both models, all five policies, both engines; the figure's other 60
@@ -444,6 +465,7 @@ FAMILY_LAYERS = {"qwen3_4b": 4, "gemma2_9b": 4, "glm4_9b": 4,
 ORACLE_F32 = ("falcon_mamba_7b", "zamba2_1p2b")
 FAMILY_SEQ = 64
 GEMMA_LONG = 4096 + 64          # gemma2's window + 64 decode positions
+GEMMA_LONG_LAYERS = 2           # one local and one global layer
 LOCAL_BLOCK = dict(S=3 * 4096, Hq=16, Hkv=8, hd=256, window=4096, softcap=50.0)
 DECODE_TOL = 2e-2               # rtol = atol, tests/test_models_smoke.py:83
 SERVE = dict(batch=4, prompt=32, gen=32)
@@ -451,7 +473,7 @@ SERVE_LAYERS = {"qwen3_4b": 4, "gemma2_9b": 4, "mixtral_8x7b": 2,
                 "falcon_mamba_7b": 64, "zamba2_1p2b": 38, "internvl2_2b": 24}
 # zamba2 is not trained here: its full-width gradient is NaN (mamba2_ssd's
 # exp(seg) overflow, the reference's; phase families' hybrid check)
-LAUNCH_LAYERS = {"gemma2_9b": 4, "mixtral_8x7b": 1, "falcon_mamba_7b": 4,
+LAUNCH_LAYERS = {"gemma2_9b": 4, "mixtral_8x7b": 1, "falcon_mamba_7b": 1,
                  "whisper_medium": 24}
 # the launcher's checkpoint mechanics, at smoke size (full-width states
 # would write 12-30 GB a checkpoint)
@@ -1422,6 +1444,12 @@ def qsr_unbiased(dev) -> float:
 def phase_kernel_check(dev, shapes) -> dict:
     from repro_torch.dist import lcmp_collectives as lc
     cong, decide, monitor = [], [], []
+    section_s, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        section_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
     for name, s in shapes.items():
         monitor.append(check_monitor(dev, s["tables"], f"{name} N={s['L']}", 200))
         if name in WORLDS:
@@ -1441,10 +1469,13 @@ def phase_kernel_check(dev, shapes) -> dict:
     del tables
     for P in range(2, 9):
         decide.append(check_lcmp_decide(dev, BULK, P, f"bulk F={BULK} P={P}", 20))
+    lap("standalone")
     route, route_cases = route_checks(dev, shapes)
     torch.cuda.empty_cache()
+    lap("route")
     decide_timed, decide_cases = decide_checks(dev, shapes)
     torch.cuda.empty_cache()
+    lap("decide")
     # the fig5 group's merged world: the tick over its C x L ports, and
     # route and decide with a law per pair
     merged = merged_shape(dev)
@@ -1456,6 +1487,7 @@ def phase_kernel_check(dev, shapes) -> dict:
     decide_timed, decide_cases = decide_timed + timed, decide_cases + cases
     del merged
     torch.cuda.empty_cache()
+    lap("merged")
     leg1, leg2 = lc.int8_leg_sizes(train_config().param_count(), TRAIN_PODS)
     quant, dequant = [], []
     for n, label, iters in ((leg1, f"train leg 1 N={leg1}", 3),
@@ -1466,7 +1498,8 @@ def phase_kernel_check(dev, shapes) -> dict:
         quant.append(qr)
         dequant.append(dr)
         torch.cuda.empty_cache()
-    out = {"phase": "kernel_check", "library_ms": None,
+    lap("qsr")
+    out = {"phase": "kernel_check", "library_ms": None, "section_s": section_s,
            "monitor_tick": monitor, "route_arrivals": route,
            "route_arrivals_cases": route_cases, "decide": decide_timed,
            "decide_cases": decide_cases,
@@ -1586,17 +1619,26 @@ def run_main_path(dev, name: str) -> dict:
     return out
 
 
-def phase_runs(dev, names=tuple(RUNS), orderings=tuple(ORDERINGS)) -> dict:
-    runs = {name: run_main_path(dev, name) for name in names}
-    for a, b, stat in orderings:
-        require(runs[a][stat] < runs[b][stat], f"{stat}: {a} < {b}")
-    return runs
+def phase_runs(dev, names=ALONE) -> dict:
+    """Every run of ``names`` (``run_main_path``)."""
+    return {name: run_main_path(dev, name) for name in names}
 
 
 def phase_packet(dev) -> dict:
-    """Every run of ``PACKET_RUNS`` (``run_main_path``), and the
-    reference's ``PACKET_ORDERINGS``."""
-    return phase_runs(dev, tuple(PACKET_RUNS), tuple(PACKET_ORDERINGS))
+    return phase_runs(dev, PACKET_ALONE)
+
+
+def check_orderings(runs: dict, groups: dict, every: dict, orderings) -> None:
+    """Every run of ``every`` was driven, alone (``runs``) or as a cell of
+    one of ``groups`` (their rows' ``run``), and the reference's
+    ``orderings`` hold on those numbers."""
+    numbers = {row["run"]: row for g in groups.values()
+               for row in g["per_cell"] if row.get("run")}
+    numbers.update(runs)
+    require(set(every) <= set(numbers), "every run was driven alone or in a "
+            f"group (missing {sorted(set(every) - set(numbers))})")
+    for a, b, stat in orderings:
+        require(numbers[a][stat] < numbers[b][stat], f"{stat}: {a} < {b}")
 
 
 def agree(a, b) -> bool:
@@ -1615,10 +1657,11 @@ def run_sweep_group(dev, group: str, runs: dict) -> dict:
     ``monitor_tick`` and one ``route_arrivals`` launch a step for the
     whole group, ``expected_decides`` ``decide`` launches, no standalone
     entry and no plain version; each cell within the bands of its
-    reference number (``REFERENCE`` or ``SWEEP_REFERENCE``) and agreeing
-    with its sequential run to the printed digits. The sequential wall
-    time sums phase run's times where it ran the cell and one sequential
-    ``run_sweep`` of the other cells, in this call."""
+    reference number (``REFERENCE`` or ``SWEEP_REFERENCE``), and each cell
+    that phase run ran alone agreeing with that run to the printed digits
+    (the CPU tests hold every merged cell to its sequential run bit for
+    bit). The batched wall time stands beside the sum of phase run's times
+    for the cells it ran."""
     from repro_torch.kernels import ops
     from repro_torch.netsim import engine
     from repro_torch.netsim import experiment as pexp
@@ -1638,39 +1681,28 @@ def run_sweep_group(dev, group: str, runs: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     decides = expected_decides(cfg)
 
-    rest = [i for i, (_, _, run) in enumerate(cells) if run is None]
-    seq_stats, rest_wall = {}, 0.0
-    if rest:
-        t0 = time.perf_counter()
-        seq = sweep.run_sweep([specs[i] for i in rest], sequential=True,
-                              device=dev)
-        torch.cuda.synchronize()
-        rest_wall = time.perf_counter() - t0
-        seq_stats = {i: r.stats for i, r in zip(rest, seq.results)}
-    seq_wall = rest_wall + sum(runs[run]["wall_s"] for _, _, run in cells if run)
-
+    in_run = [run for _, _, run in cells if run in runs]
     rows = []
-    for i, ((name, kw, run), res) in enumerate(zip(cells, rep.results)):
+    for (name, kw, run), res in zip(cells, rep.results):
         st = res.stats
         ref_nums = REFERENCE[run] if run else SWEEP_REFERENCE[name]
         row = {"cell": name, "p50": st.p50, "p99": st.p99,
                "completed": st.completed, "offered": st.offered,
-               "reference": ref_nums, "sequential": run or "sequential run",
+               "reference": ref_nums, "run": run,
                "route_nonce_max": int(res.final.route_nonce.max())}
-        if run:
-            seq_st = SimpleNamespace(**{k: runs[run][k] for k in
-                                        ("p50", "p99", "completed")})
-        else:
-            seq_st = seq_stats[i]
-        row["sequential_p50_p99_completed"] = [seq_st.p50, seq_st.p99,
-                                               seq_st.completed]
-        row["agrees_with_sequential"] = agree(st, seq_st)
+        if run in runs:
+            alone = SimpleNamespace(**{k: runs[run][k] for k in
+                                       ("p50", "p99", "completed")})
+            row.update({"run_alone": run,
+                        "run_alone_p50_p99_completed": [
+                            alone.p50, alone.p99, alone.completed],
+                        "agrees_with_run_alone": agree(st, alone)})
         rows.append(row)
     out = {"phase": "sweep", "group": group, "cells": len(cells),
            "groups": rep.num_groups, "steps": cfg.num_steps,
            "sweep_policies": list(cfg.sweep_policies), "wall_s": wall,
-           "sequential_wall_s": seq_wall,
-           "sequential_wall_of_cells_not_in_run_s": rest_wall,
+           "cells_run_alone": len(in_run),
+           "run_alone_wall_s": sum(runs[r]["wall_s"] for r in in_run),
            "max_memory_allocated": peak, "launches": counts,
            "expected_decide": decides, "plain_calls": plain.calls,
            "per_cell": rows}
@@ -1696,8 +1728,8 @@ def run_sweep_group(dev, group: str, runs: dict) -> dict:
         require(within(st.p99, r99, P99_BAND), f"{name}: p99 in band")
         require(abs(st.completed - rdone) <= COMPLETED_BAND * roffered,
                 f"{name}: completed in band")
-        require(row["agrees_with_sequential"], f"{name}: the batched cell "
-                "agrees with its sequential run to the printed digits")
+        require(row.get("agrees_with_run_alone", True), f"{name}: the "
+                "batched cell agrees with its run alone to the printed digits")
         moves = redecides and res.spec.policy in engine.REDECIDE_POLICIES
         require((row["route_nonce_max"] > 0) == moves, f"{name}: only "
                 "re-deciding cells re-decide (the others keep nonce 0)")
@@ -1774,12 +1806,14 @@ def offered_load_probe(dev, steps: int = 500, reps: int = 50) -> dict:
 
 
 def phase_sweep(dev, runs: dict) -> dict:
-    """Every group of ``SWEEPS`` (``run_sweep_group``), then where a step
-    of the merged fig5 world spends its time (``profile_steps``) and what
-    its offered-load sum costs (``offered_load_probe``)."""
+    """Every group of ``SWEEPS`` (``run_sweep_group``) and the reference's
+    ``ORDERINGS``, then where a step of the merged fig5 world spends its
+    time (``profile_steps``) and what its offered-load sum costs
+    (``offered_load_probe``)."""
     from repro_torch.netsim import experiment as pexp
     from repro_torch.netsim import sweep
     groups = {g: run_sweep_group(dev, g, runs) for g in SWEEPS}
+    check_orderings(runs, groups, RUNS, ORDERINGS)
     g = sweep.build_group([pexp.ExpSpec(**kw) for kw in SWEEPS["fig5"]],
                           device=dev)
     profile_steps(g.arrs, g.state, g.cfg, f"fig5 merged sweep ({len(g.specs)} "
@@ -1796,8 +1830,8 @@ def fidelity_grid(dev, grid: str, packet_runs: dict) -> dict:
     no plain version; each cell within the bands of its reference number
     (``PACKET_REFERENCE`` or ``FIDELITY_REFERENCE``), and each cell that
     phase packet ran alone agreeing with that run to the printed digits
-    (phase sweep holds merged fluid cells to their sequential runs, and
-    the CPU tests every merged cell bit for bit); the log-space Pearson r
+    (phase sweep does the same for fluid cells, and the CPU tests hold
+    every merged cell bit for bit); the log-space Pearson r
     of packet against fluid within ``PEARSON_BAND`` of the reference's;
     LCMP below ECMP in p50 and p99 on testbed8 under both engines."""
     from repro_torch.kernels import ops
@@ -1828,8 +1862,8 @@ def fidelity_grid(dev, grid: str, packet_runs: dict) -> dict:
         row = {"cell": name, "p50": st.p50, "p99": st.p99,
                "completed": st.completed, "offered": st.offered,
                "reference": PACKET_REFERENCE[run] if run
-               else FIDELITY_REFERENCE[name]}
-        if run:
+               else FIDELITY_REFERENCE[name], "run": run}
+        if run in packet_runs:
             alone = SimpleNamespace(**{k: packet_runs[run][k]
                                        for k in ("p50", "p99", "completed")})
             row.update({"run_alone": run,
@@ -1894,9 +1928,11 @@ def fidelity_grid(dev, grid: str, packet_runs: dict) -> dict:
 
 def phase_packet_sweep(dev, packet_runs: dict) -> dict:
     """fidelity_bench's grid at its default and quick scales
-    (``fidelity_grid``)."""
-    return {grid: fidelity_grid(dev, grid, packet_runs)
-            for grid in FIDELITY_DURATION}
+    (``fidelity_grid``), then the reference's ``PACKET_ORDERINGS``."""
+    grids = {grid: fidelity_grid(dev, grid, packet_runs)
+             for grid in FIDELITY_DURATION}
+    check_orderings(packet_runs, grids, PACKET_RUNS, PACKET_ORDERINGS)
+    return grids
 
 
 def mutations():
@@ -1923,8 +1959,9 @@ def state_tensors(st) -> dict:
 
 
 def sanitize_run(dev, engine_name: str, checks: bool, mutation=None,
-                 sync_check: bool = False):
-    """One run at ``SANITIZE`` through the engine's step; returns
+                 sync_check: bool = False, steps: int | None = None):
+    """One run at ``SANITIZE`` through the engine's step, its first
+    ``steps`` steps (default all); returns
     ``(final state, first invariant error or None, syncs at the end)``.
     With ``sync_check`` steps 1.. run under
     ``torch.cuda.set_sync_debug_mode("error")`` (step 0 builds the run's
@@ -1946,7 +1983,7 @@ def sanitize_run(dev, engine_name: str, checks: bool, mutation=None,
             if sync_check:
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                for t in range(1, cfg.num_steps):
+                for t in range(1, steps or cfg.num_steps):
                     st = step(st, t)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
@@ -1967,9 +2004,8 @@ def sanitize_run(dev, engine_name: str, checks: bool, mutation=None,
     return st, err, syncs
 
 
-def phase_sanitize(dev, runs: dict, packet_runs: dict) -> dict:
+def phase_sanitize(dev) -> dict:
     """Phase sanitize (see the module docstring)."""
-    from repro_torch.kernels import ops
     from repro_torch.netsim import engine, packet, sanitize
     from repro_torch.netsim import experiment as pexp
     out = {"phase": "sanitize", "spec": SANITIZE}
@@ -1988,7 +2024,8 @@ def phase_sanitize(dev, runs: dict, packet_runs: dict) -> dict:
     caught = {}
     for eng in ("fluid", "packet"):
         for name, fn in mutations().items():
-            _, err, _ = sanitize_run(dev, eng, True, mutation=fn)
+            _, err, _ = sanitize_run(dev, eng, True, mutation=fn,
+                                     steps=MUTATION_STEPS)
             caught[f"{eng}/{name}"] = None if err is None else err.invariant
         # signal_causality: signal delays that would read the future
         spec = pexp.ExpSpec(engine=eng, checks=1, **SANITIZE)
@@ -2021,28 +2058,6 @@ def phase_sanitize(dev, runs: dict, packet_runs: dict) -> dict:
         sanitize.pfc_gate = gate
     out["caught"] = caught
     out["pfc_paused_link_slots"] = paused
-    # the checked wall time of a main-path run of each engine
-    walls = {}
-    for name, kw in (("testbed8/lcmp", RUNS["testbed8/lcmp"]),
-                     ("packet/testbed8/lcmp",
-                      PACKET_RUNS["packet/testbed8/lcmp"])):
-        ops.reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats, _, (_, _, _, cfg, _) = pexp.run_experiment(
-            pexp.ExpSpec(**kw, checks=1), device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        plain = {**runs, **packet_runs}[name]
-        walls[name] = {"checked_wall_s": wall,
-                       "unchecked_wall_s": plain["wall_s"],
-                       "checked_over_unchecked": wall / plain["wall_s"],
-                       "p50_p99_completed": [stats.p50, stats.p99,
-                                             stats.completed],
-                       "launches": ops.counts(), "steps": cfg.num_steps,
-                       "agrees": agree(stats, SimpleNamespace(**{
-                           k: plain[k] for k in ("p50", "p99", "completed")}))}
-    out["main_path_runs"] = walls
     emit(out)
     for eng in ("fluid", "packet"):
         r = out[eng]
@@ -2052,11 +2067,6 @@ def phase_sanitize(dev, runs: dict, packet_runs: dict) -> dict:
                 "equals unchecked bit for bit")
         require(r["syncs_at_end"] is not None and r["syncs_at_end"] <= 1,
                 f"sanitize {eng}: the checked run reads its checks once")
-    for name, r in walls.items():
-        require(r["agrees"], f"sanitize {name}: the checked run scores as "
-                "phase run's unchecked one")
-        require(r["launches"]["monitor_tick"] == r["steps"],
-                f"sanitize {name}: one monitor_tick launch a step")
     for key, got in caught.items():
         require(got == key.split("/")[1], f"sanitize: {key} fires under its "
                 f"own name (got {got})")
@@ -2258,7 +2268,7 @@ def phase_switch(dev) -> dict:
     return out
 
 
-def phase_profile(dev, steps: int = 200) -> list:
+def phase_profile(dev, steps: int = 100) -> list:
     """Where a step's time goes (``profile_steps``): a fluid testbed8
     lcmp step, then a packet slot of fidelity_bench's testbed8 lcmp
     cell."""
@@ -2279,7 +2289,7 @@ def phase_profile(dev, steps: int = 200) -> list:
     return out
 
 
-def profile_steps(arrs, st, cfg, label: str, steps: int = 200,
+def profile_steps(arrs, st, cfg, label: str, steps: int = 100,
                   phase: str = "profile") -> dict:
     """Where a step's time goes in world ``arrs``/``st`` after 300 warm-up
     steps, under ``torch.inference_mode`` as ``run`` steps: the wall time
@@ -2338,11 +2348,11 @@ def profile_steps(arrs, st, cfg, label: str, steps: int = 200,
 
 
 def device_vs_cpu(dev, kw: dict, label: str) -> dict:
-    """One 100 ms run on the card and on the CPU (plain versions): the
+    """One 50 ms run on the card and on the CPU (plain versions): the
     same paths for the flows of the first 500 steps, and the same
     p50/p99/completions within the bands."""
     from repro_torch.netsim import experiment as pexp
-    spec = pexp.ExpSpec(**dict(kw, duration_us=100_000))
+    spec = pexp.ExpSpec(**dict(kw, duration_us=DEVICE_VS_CPU_US))
     res = {}
     for d in (dev, torch.device("cpu")):
         t0 = time.perf_counter()
@@ -2374,12 +2384,12 @@ def device_vs_cpu(dev, kw: dict, label: str) -> dict:
 
 
 def sweep_device_vs_cpu(dev, policies=("lcmp", "ecmp", "redte")) -> dict:
-    """A 100 ms testbed8 load-0.5 group through ``run_sweep`` on the card
+    """A 50 ms testbed8 load-0.5 group through ``run_sweep`` on the card
     and on the CPU (plain versions): each cell routes the flows of the
     first 500 steps alike and lands within the bands of the CPU's."""
     from repro_torch.netsim import experiment as pexp
     from repro_torch.netsim import sweep
-    specs = [pexp.ExpSpec(**dict(TESTBED8, duration_us=100_000, policy=p))
+    specs = [pexp.ExpSpec(**dict(TESTBED8, duration_us=DEVICE_VS_CPU_US, policy=p))
              for p in policies]
     res = []
     for d in (dev, torch.device("cpu")):
@@ -2399,7 +2409,7 @@ def sweep_device_vs_cpu(dev, policies=("lcmp", "ecmp", "redte")) -> dict:
                       "gpu": [a.stats.p50, a.stats.p99, a.stats.completed],
                       "cpu": [b.stats.p50, b.stats.p99, b.stats.completed]})
     out = {"phase": "device_vs_cpu", "spec": "sweep of testbed8 load 0.5 "
-           f"{'/'.join(policies)} 100 ms", "gpu_wall_s": wg, "cpu_wall_s": wc,
+           f"{'/'.join(policies)} 50 ms", "gpu_wall_s": wg, "cpu_wall_s": wc,
            "cells": cells}
     emit(out)
     for row, a, b in zip(cells, g.results, c.results):
@@ -2414,21 +2424,21 @@ def sweep_device_vs_cpu(dev, policies=("lcmp", "ecmp", "redte")) -> dict:
 
 def phase_device_vs_cpu(dev) -> list:
     """testbed8 lcmp, a schedule run (testbed8_failover lcmp with the
-    trip at 50 ms: step 250, active flows on the tripped link) and a
-    sweep group; then the packet engine: fidelity_bench's testbed8 lcmp
-    cell and the same failover (go-back-N at the trip)."""
-    fail = dict(topology="testbed8_failover:fail_ms=50", load=0.3,
+    trip at 25 ms) and a sweep group; then the packet engine:
+    fidelity_bench's testbed8 lcmp cell and the same failover (go-back-N
+    at the trip)."""
+    fail = dict(topology="testbed8_failover:fail_ms=25", load=0.3,
                 policy="lcmp")
     return [device_vs_cpu(dev, dict(TESTBED8, policy="lcmp"),
-                          "testbed8 lcmp load 0.5 100 ms"),
+                          "testbed8 lcmp load 0.5 50 ms"),
             device_vs_cpu(dev, fail,
-                          "testbed8_failover:fail_ms=50 lcmp load 0.3 100 ms"),
+                          "testbed8_failover:fail_ms=25 lcmp load 0.3 50 ms"),
             sweep_device_vs_cpu(dev),
             device_vs_cpu(dev, PACKET_RUNS["packet/testbed8/lcmp"],
-                          "packet testbed8 lcmp load 0.3 seed 1 100 ms"),
+                          "packet testbed8 lcmp load 0.3 seed 1 50 ms"),
             device_vs_cpu(dev, dict(fail, engine="packet"),
-                          "packet testbed8_failover:fail_ms=50 lcmp load 0.3 "
-                          "100 ms")]
+                          "packet testbed8_failover:fail_ms=25 lcmp load 0.3 "
+                          "50 ms")]
 
 
 def adam_bound(cfg, t: int) -> float:
@@ -2906,8 +2916,7 @@ def check_gemma_long(dev) -> dict:
     decode positions mask the keys beyond the 4096-token window on the
     local layers and still match ``forward``."""
     from repro_torch.models import arch as A
-    arch = "gemma2_9b"
-    cfg = cut_config(arch, FAMILY_LAYERS[arch])
+    cfg = cut_config("gemma2_9b", GEMMA_LONG_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     # the matrices held in bf16: the very values each use's cast makes, so
     # forward and decode compute what they compute on the f32 weights,
@@ -3265,7 +3274,7 @@ def main() -> int:
     phase_profile(dev)
     sweeps = phase_sweep(dev, runs)
     fidelity = phase_packet_sweep(dev, packet_runs)
-    phase_sanitize(dev, runs, packet_runs)
+    phase_sanitize(dev)
     cosim = phase_cosim(dev)
     switch = phase_switch(dev)
     phase_device_vs_cpu(dev)

@@ -53,3 +53,30 @@ def test_sweep_reference_numbers_are_the_jax_packages(group):
         assert abs(st.p50 - p50) <= 0.005 * p50, (name, st.p50)   # printed
         assert abs(st.p99 - p99) <= 0.005 * p99, (name, st.p99)   # to 4 digits
         assert (st.completed, st.offered) == (completed, offered), name
+
+
+def test_every_run_is_driven_alone_or_as_a_group_cell():
+    cells = {run for g in CS.SWEEPS for _, _, run in CS.sweep_cells(g) if run}
+    assert set(CS.ALONE) <= set(CS.RUNS)
+    assert set(CS.RUNS) == set(CS.ALONE) | cells
+    packet_cells = {run for grid in CS.FIDELITY_DURATION
+                    for _, _, run in CS.fidelity_cells(grid) if run}
+    assert set(CS.PACKET_ALONE) <= set(CS.PACKET_RUNS)
+    assert set(CS.PACKET_RUNS) == set(CS.PACKET_ALONE) | packet_cells
+    # a merged cell of each engine is held to its run alone on the card
+    assert set(CS.ALONE) & cells and set(CS.PACKET_ALONE) & packet_cells
+    for a, b, _ in CS.ORDERINGS:
+        assert {a, b} <= set(CS.RUNS)
+    for a, b, _ in CS.PACKET_ORDERINGS:
+        assert {a, b} <= set(CS.PACKET_RUNS)
+
+
+def test_orderings_read_runs_alone_and_group_cells():
+    runs = {"a": {"p99": 1.0}}
+    groups = {"g": {"per_cell": [{"run": "b", "p99": 2.0},
+                                 {"run": None, "p99": 0.0}]}}
+    CS.check_orderings(runs, groups, {"a": 0, "b": 0}, [("a", "b", "p99")])
+    with pytest.raises(RuntimeError, match="p99: b < a"):
+        CS.check_orderings(runs, groups, {"a": 0, "b": 0}, [("b", "a", "p99")])
+    with pytest.raises(RuntimeError, match=r"missing \['c'\]"):
+        CS.check_orderings(runs, groups, {"a": 0, "c": 0}, [])
