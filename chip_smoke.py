@@ -106,7 +106,18 @@ the script exits non-zero and prints no result line. Phases:
    parameters against AdamW's bound; time split, tokens/s, peak memory;
 14. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
    and on the CPU from the same weights and batch;
-15. families: every configuration at its published widths in bf16,
+15. dist: the pod reduce across processes, 2 ranks on the one card over
+   Gloo, each one pod (``PodGroup``): each rank's own 1.18 G-element
+   vector reduced over the group with the int8 and f32 wires, every
+   rank's result against the one-process ``PodAxis`` reduce on the card
+   bit for bit (exact digests) and its route bytes against the
+   reference's loop; then one int8 train step of phase train's cell on
+   each rank as its pod: the ranks' parameters equal bit for bit, losses
+   and norm within rtol 1e-3 of phase train's first step; the wall time
+   of each wire leg, each rank's qsr launches and peak memory (the
+   FSDP x TP step on a DeviceMesh is not run on the card: DTensor's
+   collectives over Gloo crash for ranks sharing one card);
+16. families: every configuration at its published widths in bf16,
    depth cut where ``FAMILY_LAYERS`` says (qwen3-4b, gemma2-9b, glm4-9b,
    mistral-nemo-12b, mixtral-8x7b, dbrx-132b cut; falcon-mamba-7b,
    zamba2-1.2b, whisper-medium and internvl2-2b at full depth), each on
@@ -128,11 +139,11 @@ the script exits non-zero and prints no result line. Phases:
    and its non-finite gradient leaves the reference's
    (``HYBRID_NONFINITE``: the reference's ``mamba2_ssd`` overflow,
    reproduced);
-16. serve: ``launch.serve.prefill_then_decode`` at the reference's
+17. serve: ``launch.serve.prefill_then_decode`` at the reference's
    defaults (batch 4, prompt 32, gen 32) for qwen3-4b, gemma2-9b,
    mixtral-8x7b, falcon-mamba-7b, zamba2-1.2b and internvl2-2b:
    tokens/s, ms per decode step, peak memory;
-17. launch_train: the training launcher's loop at full width on one
+18. launch_train: the training launcher's loop at full width on one
    4096-token sequence, 3 steps of gemma2-9b (4 layers), mixtral-8x7b
    (1 layer), falcon-mamba-7b (1 layer) and whisper-medium (full
    depth, its frames in the batch): finite losses, step time, tokens/s,
@@ -434,6 +445,7 @@ STAGE_MS = ("pairs_ms", "pick_ms")
 # sequences cut to one 4096-token sequence per pod, so that two pods'
 # gradients, the AdamW state and the int8 wire fit one card.
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_PODS = 4, 4096, 2
+DIST_RANKS, DIST_SEED = 2, 21        # phase dist: ranks on one card, pod seeds
 # After one step from the same state the int8 wire's noise moves a
 # parameter beyond float32 rounding only where the noise is comparable to
 # its gradient: 1.5% of elements at the train size on the H100, 5.9% at
@@ -2533,14 +2545,8 @@ def phase_train(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     params, opt = init_train_state(cfg, 0, device=dev)
     lc._TELEMETRY.reset()
-    nb = -(-M // lc.BUCKET_ELEMS)           # the reference's bucket ids
-    ids = lc._fmix32_host(np.arange(nb, dtype=np.uint32) + np.uint32(1))
-    routes = lc.schedule_buckets(ids)
-    want_bytes = {m: np.zeros(lc.NUM_ROUTES, np.int64) for m in steps}
-    for b in range(nb):                     # the reference's accounting loop
-        blen = min((b + 1) * lc.BUCKET_ELEMS, M) - b * lc.BUCKET_ELEMS
-        want_bytes["lcmp_int8"][routes[b]] += blen + 4 * (-(-blen // 1024))
-        want_bytes["lcmp"][routes[b]] += 4 * blen
+    ids, routes = reference_buckets(M)
+    want_bytes = reference_route_bytes(M)
 
     def run(mode: str, k: int, prof=None) -> dict:
         nonlocal params, opt
@@ -2704,6 +2710,222 @@ def phase_train_device_vs_cpu(dev) -> dict:
             "AdamW's bound, beyond rounding on under 5%")
     require(launches["qsr_int8"] == 4 and launches["qsr_dequant"] == 3,
             "train device vs cpu: the card step ran the qsr kernels")
+    return out
+
+
+# ------------------------------------------------ the dist layer, 2 ranks
+def digest(t: torch.Tensor, chunk: int = 1 << 26) -> list:
+    """An exact digest of a float32 tensor's bits: its length, the sum
+    of its bit patterns and their sum weighted by (index mod 65521) + 1,
+    in int64 on its device."""
+    v = t.detach().reshape(-1).view(torch.int32)
+    s0 = s1 = 0
+    for o in range(0, v.numel(), chunk):
+        x = v[o:o + chunk].to(torch.int64)
+        wt = torch.arange(o, o + x.numel(), device=x.device) % 65521 + 1
+        s0 += int(x.sum())
+        s1 += int((x * wt).sum())
+    return [v.numel(), s0, s1]
+
+
+def pod_vector(dev, m: int, pod: int) -> torch.Tensor:
+    """Pod ``pod``'s gradient for phase dist's reduce: normal values,
+    each 1024-element block scaled by 1e-3, 1 or 100, from its seed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(DIST_SEED + pod)
+    x = torch.randn(-(-m // 1024) * 1024, generator=gen, device=dev)
+    pick = torch.randint(0, 3, (x.numel() // 1024,), generator=gen, device=dev)
+    mag = torch.tensor([1e-3, 1.0, 100.0], device=dev)[pick]
+    x.view(-1, 1024).mul_(mag[:, None])
+    return x[:m]
+
+
+def reference_buckets(m: int) -> tuple:
+    """The reference's bucket ids of a flat vector of ``m`` elements, and
+    the routes ``schedule_buckets`` binds them to."""
+    from repro_torch.dist import lcmp_collectives as lc
+    nb = -(-m // lc.BUCKET_ELEMS)
+    ids = lc._fmix32_host(np.arange(nb, dtype=np.uint32) + np.uint32(1))
+    return ids, lc.schedule_buckets(ids)
+
+
+def reference_route_bytes(m: int) -> dict:
+    """The bytes one pod's reduce of ``m`` elements puts on each route,
+    by the reference's accounting loop, for the int8 (``lcmp_int8``) and
+    f32 (``lcmp``) wires."""
+    from repro_torch.dist import lcmp_collectives as lc
+    routes = reference_buckets(m)[1]
+    out = {mode: np.zeros(lc.NUM_ROUTES, np.int64)
+           for mode in ("lcmp_int8", "lcmp")}
+    for b in range(len(routes)):
+        blen = min((b + 1) * lc.BUCKET_ELEMS, m) - b * lc.BUCKET_ELEMS
+        out["lcmp_int8"][routes[b]] += blen + 4 * (-(-blen // 1024))
+        out["lcmp"][routes[b]] += 4 * blen
+    return out
+
+
+def dist_rank(rank: int, port: int, q) -> None:
+    """One rank of phase dist: one pod on ``cuda:0`` in a Gloo group of
+    ``DIST_RANKS``. Reduces its own pod vector over the group in both
+    wire modes, then runs one ``lcmp_int8`` train step of phase train's
+    cell as its pod; puts what it saw on ``q``."""
+    import datetime
+    import traceback
+    try:
+        import torch.distributed as dist
+        sys.path.insert(0, os.path.join(HERE, "src"))
+        from repro_torch.data.synth import batch_at
+        from repro_torch.dist import lcmp_collectives as lc
+        from repro_torch.dist.lcmp_collectives import tree_flatten
+        from repro_torch.kernels import ops
+        from repro_torch.train.step import (TrainConfig, init_train_state,
+                                            make_train_step)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=DIST_RANKS, rank=rank,
+                                timeout=datetime.timedelta(seconds=300))
+        group = lc.PodGroup()
+        cfg = train_config()
+        m = cfg.param_count()
+        out = {"rank": rank, "reduce": {}}
+        ops.reset_counts()                  # the main path: reduces, step
+        for mode in ("lcmp_int8", "lcmp"):
+            x = pod_vector(dev, m, rank)
+            lc._TELEMETRY.reset()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = lc.pod_reduce_flat(x, group, compress=mode == "lcmp_int8")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out["reduce"][mode] = {
+                "wall_s": wall, "leg_s": dict(lc._TELEMETRY.leg_s),
+                "route_bytes": lc._TELEMETRY.route_bytes.tolist(),
+                "digest": digest(got)}
+            del x, got
+        out["reduce_launches"] = {n: ops.counts()[n]
+                                  for n in ("qsr_int8", "qsr_dequant")}
+        out["reduce_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lc._TELEMETRY.reset()
+        params, opt = init_train_state(cfg, 0, device=dev)
+        step = make_train_step(cfg, TrainConfig(pod_reduce="lcmp_int8",
+                                                pod_axis=group))
+        batch = batch_at(cfg, 0, batch=TRAIN_PODS, seq=TRAIN_SEQ, device=dev)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        out["step"] = {
+            "wall_s": time.perf_counter() - t0, "split_ms": step.split_ms(),
+            "leg_s": dict(lc._TELEMETRY.leg_s),
+            "loss": met["loss"].tolist(), "grad_norm": float(met["grad_norm"]),
+            "route_bytes": lc._TELEMETRY.route_bytes.tolist(),
+            "params_digest": [digest(p) for p in tree_flatten(params)[0]],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        counts = ops.counts()
+        out["launches"] = {n: counts[n] for n in ("qsr_int8", "qsr_dequant")}
+        dist.barrier()
+        dist.destroy_process_group()
+        q.put(out)
+    except BaseException:
+        q.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def phase_dist(dev, train: dict) -> dict:
+    """The dist layer across processes on the card: ``DIST_RANKS`` ranks,
+    each one pod on ``cuda:0`` in a Gloo group (NCCL refuses two ranks on
+    one device). (a) Each rank reduces its own pod vector of phase
+    train's gradient size over the group (``PodGroup``), int8 and f32
+    wires: every rank's result equals the one-process ``PodAxis`` reduce
+    of the same vectors on the card bit for bit (exact digests), and its
+    route bytes the reference's accounting loop. (b) Each rank runs one
+    ``lcmp_int8`` step of phase train's cell as its pod, from seed 0 on
+    phase train's first batch: the ranks' parameters are equal bit for
+    bit, and their losses and norm within rtol 1e-3 of phase train's
+    first step (CUDA's backward kernels need not repeat bits across
+    processes). Each rank's qsr launches join the kernels line."""
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    from repro_torch.dist import lcmp_collectives as lc
+    from repro_torch.dist.lcmp_collectives import PodAxis
+    cfg = train_config()
+    m = cfg.param_count()
+    want_bytes = reference_route_bytes(m)
+    oracle = {}
+    torch.cuda.empty_cache()
+    for mode in ("lcmp_int8", "lcmp"):      # the one-process reduce
+        flat = torch.stack([pod_vector(dev, m, p) for p in range(DIST_RANKS)])
+        got = lc.pod_reduce_flat(flat, PodAxis("pod", DIST_RANKS),
+                                 compress=mode == "lcmp_int8")
+        oracle[mode] = digest(got)
+        del flat, got
+    lc._TELEMETRY.reset()
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = tmp.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dist_rank, args=(r, port, q))
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        ranks = sorted((q.get(timeout=600) for _ in procs),
+                       key=lambda r: r["rank"])
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        require("error" not in r, f"dist: rank {r['rank']} failed:\n"
+                f"{r.get('error')}")
+    first = train["records"][0]             # phase train's first int8 step
+    out = {"phase": "dist", "ranks": DIST_RANKS, "backend": "gloo",
+           "config": cfg.name, "layers": cfg.n_layers, "params": m,
+           "wall_s": wall, "parent_allocated_bytes": parent_bytes,
+           "per_rank": ranks,
+           "train_step1_loss": first["loss"],
+           "train_step1_grad_norm": first["grad_norm"],
+           "launches": {n: sum(r["launches"][n] for r in ranks)
+                        for n in ("qsr_int8", "qsr_dequant")}}
+    emit(out)
+    for r in ranks:
+        for mode in ("lcmp_int8", "lcmp"):
+            red = r["reduce"][mode]
+            require(red["digest"] == oracle[mode], f"dist: rank {r['rank']}'s "
+                    f"{mode} reduce equals the one-process PodAxis reduce bit "
+                    "for bit")
+            require(red["route_bytes"] == want_bytes[mode].tolist(),
+                    f"dist: rank {r['rank']}'s {mode} route_bytes as the "
+                    "reference's loop")
+        st = r["step"]
+        require(st["params_digest"] == ranks[0]["step"]["params_digest"],
+                f"dist: rank {r['rank']}'s parameters equal rank 0's bit for bit")
+        require(st["route_bytes"] == want_bytes["lcmp_int8"].tolist(),
+                f"dist: rank {r['rank']}'s step route_bytes")
+        require(np.allclose(st["loss"], first["loss"], rtol=1e-3, atol=0)
+                and np.isclose(st["grad_norm"], first["grad_norm"], rtol=1e-3,
+                               atol=0),
+                f"dist: rank {r['rank']}'s losses and norm within rtol 1e-3 of "
+                "phase train's first step")
+        require(r["reduce_launches"] == {"qsr_int8": 2, "qsr_dequant": 2}
+                and r["launches"] == {"qsr_int8": 4, "qsr_dequant": 4},
+                f"dist: rank {r['rank']} launched both qsr kernels, 2 and 2 "
+                "an int8 reduce")
     return out
 
 
@@ -3188,7 +3410,7 @@ def phase_launch_train(dev) -> dict:
 
 
 def kernel_summary(checks: dict, runs: dict, train: dict,
-                   sweeps: dict) -> dict:
+                   sweeps: dict, dist: dict) -> dict:
     """The ``kernels`` line: every TPU kernel, each at its main-path
     entry. The fluid pair's entries are the fused ``monitor_tick`` and
     ``route_arrivals`` at testbed8's shape (lcmp, the row with the most
@@ -3228,14 +3450,17 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
     # the qsr pair at the train phase's first-leg shape (every pod's
     # padded gradient; the dequant of the received partials and of the
     # gathered mean have the same length), launched by the 3 int8 steps
+    # and, in phase dist, by each rank's int8 reduce and step
     for name, replaces in (("qsr_int8", "src/repro/kernels/qsr_int8.py:41"),
                            ("qsr_dequant", "src/repro/kernels/qsr_int8.py:65")):
+        by_run = {"train/lcmp_int8 x3": train["launches"][name],
+                  **{f"dist/rank{r['rank']}": r["launches"][name]
+                     for r in dist["per_rank"]}}
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/qsr_int8.cu",
-            "replaces": replaces, "launches": train["launches"][name],
-            "launches_by_run": {"train/lcmp_int8 x3": train["launches"][name]},
-            **kernel_fields(checks[name])})
+            "replaces": replaces, "launches": sum(by_run.values()),
+            "launches_by_run": by_run, **kernel_fields(checks[name])})
     return {"kernels": out}
 
 
@@ -3280,12 +3505,13 @@ def main() -> int:
     phase_device_vs_cpu(dev)
     train = phase_train(dev)
     phase_train_device_vs_cpu(dev)
+    dist = phase_dist(dev, train)
     phase_families(dev)
     phase_serve(dev)
     phase_launch_train(dev)
     emit(kernel_summary(checks, {**runs, **packet_runs, "cosim": cosim,
                                  "switch": switch}, train,
-                        {**sweeps, **fidelity}))
+                        {**sweeps, **fidelity}, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -10,20 +10,28 @@ observed wall times (``RouteTelemetry``), and ``schedule_buckets``,
 which binds each fixed-size bucket of the flat gradient to a live route
 by fused cost, keep-the-cheaper-half and an fmix32 hash.
 
-The reduction runs over a **pod group on one device**. The reference's
-pod axis is a named ``shard_map`` axis, and its CPU tests emulate the
-pods as host devices of one process; here a ``PodAxis(name, size)``
-stands in for the bound axis, per-pod values carry a leading ``(n, ...)``
-dimension, and the collectives are exact index moves on it: the
-reduce-scatter/all-gather mean is a sum over the pod dimension, the
-``all_to_all`` of the int8 path hands pod ``d`` chunk ``d`` of every
-source, and the ``all_gather`` concatenates the pods' chunks. Every pod
-ends with the same mean, so the reduction returns it once. With
-``compress=True`` both wire legs are int8 with one f32 scale per 1024
-elements (``dist.compress`` over the ``qsr_int8``/``qsr_dequant``
-kernels), with the reference's per-pod random bits, so the result equals
-the reference's. A ``torch.distributed`` backend across cards is not
-ported (ROADMAP.md, queue A item 9).
+The reduction runs over one of two kinds of pod axis. A
+``PodAxis(name, size)`` holds every pod **on one device**: the
+reference's pod axis is a named ``shard_map`` axis, and its CPU tests
+emulate the pods as host devices of one process; here per-pod values
+carry a leading ``(n, ...)`` dimension, and the collectives are exact
+index moves on it: the reduce-scatter/all-gather mean is a sum over the
+pod dimension, the ``all_to_all`` of the int8 path hands pod ``d`` chunk
+``d`` of every source, and the ``all_gather`` concatenates the pods'
+chunks. Every pod ends with the same mean, so the reduction returns it
+once. A ``PodGroup`` puts **one pod on each rank** of a
+``torch.distributed`` process group, as each device of the reference's
+``shard_map`` holds one: each rank passes its own ``(M,)`` gradient,
+and the legs are ``all_to_all_single`` and ``all_gather_into_tensor``
+over the group. The f32 mean's reduce-scatter leg is an
+``all_to_all_single`` of chunks summed on the receiving rank in pod
+order (the wire bytes of a reduce-scatter, and no dependence on the
+backend's reduction order), so both kinds of axis give the same bits.
+With ``compress=True`` both wire legs are int8 with one f32 scale per
+1024 elements (``dist.compress`` over the ``qsr_int8``/``qsr_dequant``
+kernels), with the reference's per-pod random bits (a pure function of
+seed, pod index and element index), so the result equals the
+reference's, and every rank's equals the one-device result.
 
 Wire accounting differs in one way: the reference adds to
 ``_TELEMETRY.route_bytes`` once per *trace* of its jitted step; this
@@ -34,10 +42,12 @@ there. The port also records the last call's bucket binding in
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Tuple
+import time
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.dist import compress as comp
 from repro_torch.kernels import ops
@@ -98,6 +108,7 @@ class RouteTelemetry:
         self.alive = np.ones(self.n, bool)
         self.route_bytes = np.zeros(self.n, np.int64)
         self.bucket_routes = np.zeros(0, np.int64)
+        self.leg_s: dict = {}
 
     def observe(self, ms, step: int):
         """Feed one per-route wall-time sample (ms) at train ``step``."""
@@ -171,9 +182,43 @@ class PodAxis:
             raise ValueError(f"PodAxis {self.name!r}: size must be >= 1")
 
 
+@dataclasses.dataclass(frozen=True)
+class PodGroup:
+    """A pod axis with one pod on each rank of a ``torch.distributed``
+    process group (``group=None``: the default group). ``size`` and
+    ``rank`` are read from the group. The wire legs are the backend's
+    collectives on the ranks' own tensors (Gloo carries CUDA tensors
+    too)."""
+    group: Any = None
+    name: str = "pod"
+
+    @property
+    def size(self) -> int:
+        return dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+
 def _axis_size_or_none(axis):
     """Size of the pod axis, or None without one (the no-op path)."""
     return None if axis is None else axis.size
+
+
+def _leg(name: str, fn, out: torch.Tensor, inp: torch.Tensor,
+         g: PodGroup) -> None:
+    """A wire leg over the group. Its wall time, from a synchronized
+    start so that it holds the transfer only, adds to
+    ``_TELEMETRY.leg_s[name]``, which each group reduce starts empty."""
+    if out.device.type == "cuda":
+        torch.cuda.synchronize(out.device)
+    t0 = time.perf_counter()
+    fn(out, inp, group=g.group)
+    if out.device.type == "cuda":
+        torch.cuda.synchronize(out.device)
+    _TELEMETRY.leg_s[name] = _TELEMETRY.leg_s.get(name, 0.0) \
+        + time.perf_counter() - t0
 
 
 # ------------------------------------------------------------------ pytree
@@ -228,6 +273,27 @@ def _reduce_flat_f32(seg: torch.Tensor, n: int) -> torch.Tensor:
     return seg.sum(0) / torch.full((), float(n), device=seg.device)
 
 
+def _group_f32(x: torch.Tensor, g: PodGroup) -> torch.Tensor:
+    """The f32 mean of each rank's ``x`` (m,) over the group: an
+    ``all_to_all`` of chunks (rank d receives chunk d of every rank, in
+    rank order), the sum and division of ``_reduce_flat_f32`` on them,
+    then an ``all_gather`` of the mean chunks."""
+    n, m = g.size, x.shape[0]
+    chunk = -(-m // n)
+    x = x.to(torch.float32)
+    if n * chunk != m:
+        x = torch.cat([x, x.new_zeros((n * chunk - m,))])
+    _TELEMETRY.leg_s = {}
+    recv = torch.empty_like(x)
+    _leg("all_to_all", dist.all_to_all_single, recv, x, g)
+    del x
+    mean = _reduce_flat_f32(recv.view(n, chunk), n)
+    del recv
+    out = mean.new_empty((n * chunk,))
+    _leg("all_gather", dist.all_gather_into_tensor, out, mean, g)
+    return out[:m]
+
+
 def int8_leg_sizes(m: int, n: int) -> Tuple[int, int]:
     """``(mp, chunk)`` of the int8 reduce of m elements over n pods: each
     pod's padded vector (the first leg) and the chunk each pod averages
@@ -267,49 +333,103 @@ def _reduce_flat_int8(seg: torch.Tensor, n: int, seed: int) -> torch.Tensor:
     return ops.qsr_dequant(torch.cat(qg), torch.cat(sg))[:m]
 
 
+def _group_int8(x: torch.Tensor, g: PodGroup, seed: int) -> torch.Tensor:
+    """``_reduce_flat_int8`` with one pod on each rank: this rank
+    quantizes its padded vector with its own bits (salt = its rank), the
+    ``all_to_all`` hands rank d chunk d of every rank's int8 leg and
+    scales, rank d dequantizes and averages them in rank order and
+    re-quantizes the mean chunk, and the ``all_gather`` gives every rank
+    every mean chunk to dequantize. Each step is the one-device path's
+    own, on the same values in the same order."""
+    n, r, m = g.size, g.rank, x.shape[0]
+    mp, chunk = int8_leg_sizes(m, n)
+    dev = x.device
+    if mp != m:
+        x = torch.cat([x, x.new_zeros((mp - m,))])
+    _TELEMETRY.leg_s = {}
+    q, s = ops.qsr_int8(x, comp.rand_bits(mp, seed, salt=r, device=dev))
+    del x
+    q2, s2 = torch.empty_like(q), torch.empty_like(s)
+    _leg("all_to_all", dist.all_to_all_single, q2, q, g)
+    _leg("all_to_all", dist.all_to_all_single, s2, s, g)
+    del q, s
+    mean_chunk = ops.qsr_dequant(q2, s2).reshape(n, chunk).mean(0)
+    del q2, s2
+    qm, sm = ops.qsr_int8(mean_chunk, comp.rand_bits(
+        chunk, seed ^ LEG2_SEED_XOR, salt=r, device=dev))
+    del mean_chunk
+    qg = qm.new_empty((mp,))
+    sg = sm.new_empty((mp // BLOCK,))
+    _leg("all_gather", dist.all_gather_into_tensor, qg, qm, g)
+    _leg("all_gather", dist.all_gather_into_tensor, sg, sm, g)
+    return ops.qsr_dequant(qg, sg)[:m]
+
+
+def reduce_mean(flat: torch.Tensor, axis) -> torch.Tensor:
+    """The exact f32 mean over ``axis`` (the ``psum`` step's pmean),
+    without bucket binding or accounting: ``flat`` is (n, M) over a
+    ``PodAxis``, the rank's own (M,) over a ``PodGroup``."""
+    if isinstance(axis, PodGroup):
+        return _group_f32(flat, axis)
+    return _reduce_flat_f32(flat, axis.size)
+
+
 def pod_reduce_flat(flat: torch.Tensor, axis, compress: bool = False
                     ) -> torch.Tensor:
-    """Mean of ``flat`` (n, M) float32, the pods' flat gradients in the
-    reference's leaf order, over ``axis``: the (M,) vector every pod
-    holds afterwards. Binds the buckets to routes and accounts their
-    wire bytes, as ``lcmp_pod_reduce`` does."""
+    """Mean of the pods' flat float32 gradients (in the reference's leaf
+    order) over ``axis``: the (M,) vector every pod holds afterwards.
+    Over a ``PodAxis`` ``flat`` is (n, M), every pod's; over a
+    ``PodGroup`` it is this rank's own (M,). Binds the buckets to routes
+    and accounts their wire bytes, as ``lcmp_pod_reduce`` does (on each
+    rank, as on each device of the reference's ``shard_map``)."""
+    group = isinstance(axis, PodGroup)
+    if group and flat.dim() != 1:
+        raise ValueError(f"pod_reduce_flat: over a PodGroup flat is the "
+                         f"rank's own (M,), got {tuple(flat.shape)}")
     n = _axis_size_or_none(axis)
-    if n is None or flat.shape[0] != n:
+    if not group and (n is None or flat.dim() != 2 or flat.shape[0] != n):
         raise ValueError(f"pod_reduce_flat: flat must be (n, M) with n the "
                          f"size of {axis}, got {tuple(flat.shape)}")
-    total = int(flat.shape[1])
+    total = int(flat.shape[-1])
     ids, routes = bucket_binding(total)
     _account(total, routes, compress)
-    if compress:
-        return _reduce_flat_int8(flat, n, seed=int(ids[0]))
-    return _reduce_flat_f32(flat, n)
+    if not compress:
+        return reduce_mean(flat, axis)
+    if group:
+        return _group_int8(flat, axis, seed=int(ids[0]))
+    return _reduce_flat_int8(flat, n, seed=int(ids[0]))
 
 
 def lcmp_pod_reduce(tree, axis, compress: bool = False):
     """Mean-reduce a gradient tree over ``axis`` (== pmean), as
-    LCMP-scheduled fixed-size buckets. Leaves carry the pod dimension
-    first, ``(n, *shape)``; the result has the same structure, each leaf
-    a broadcast view of the one mean every pod holds. No-op when
-    ``axis`` is None or of size 1 (single-pod runs).
+    LCMP-scheduled fixed-size buckets. Over a ``PodAxis`` leaves carry
+    the pod dimension first, ``(n, *shape)``, and each leaf of the
+    result is a broadcast view of the one mean every pod holds; over a
+    ``PodGroup`` each rank passes its own leaves and gets the mean
+    leaves. No-op when ``axis`` is None or of size 1 (single-pod runs).
 
     With ``compress=True`` the wire is int8 (3.98x fewer bytes, error
     within 2 quantization steps)."""
     n = _axis_size_or_none(axis)
     if n is None or n == 1:
         return tree
+    group = isinstance(axis, PodGroup)
     leaves, rebuild = tree_flatten(tree)
-    for leaf in leaves:
-        if leaf.dim() == 0 or leaf.shape[0] != n:
-            raise ValueError(f"lcmp_pod_reduce: every leaf needs a leading "
-                             f"pod dimension of {n}, got {tuple(leaf.shape)}")
-    flat = torch.cat([leaf.reshape(n, -1).to(torch.float32)
-                      for leaf in leaves], dim=1)
+    if not group:
+        for leaf in leaves:
+            if leaf.dim() == 0 or leaf.shape[0] != n:
+                raise ValueError(f"lcmp_pod_reduce: every leaf needs a "
+                                 f"leading pod dimension of {n}, got "
+                                 f"{tuple(leaf.shape)}")
+    lead = () if group else (n,)
+    flat = torch.cat([leaf.reshape(*lead, -1).to(torch.float32)
+                      for leaf in leaves], dim=-1)
     out = pod_reduce_flat(flat, axis, compress)
     new, o = [], 0
     for leaf in leaves:
-        shape = leaf.shape[1:]
+        shape = leaf.shape[len(lead):]
         size = int(np.prod(shape)) if len(shape) else 1
-        new.append(out[o:o + size].reshape(shape).to(leaf.dtype)
-                   .unsqueeze(0).expand(n, *shape))
+        piece = out[o:o + size].reshape(shape).to(leaf.dtype)
+        new.append(piece if group else piece.unsqueeze(0).expand(n, *shape))
         o += size
     return rebuild(new)

@@ -13,9 +13,18 @@ package restores in the other, bit for bit.
 A save is atomic: it writes into ``step-%08d.tmp-0``, writes the
 manifest as ``manifest.json`` and renames it to ``MANIFEST.json`` (the
 completeness marker), then renames the directory into place; a partial
-save never shadows the last good step. The port is one process, so it
-writes shard 0 only. Re-sharding onto a device mesh (``mesh``/``specs``)
-is not ported (ROADMAP.md, queue A item 9).
+save never shadows the last good step.
+
+Sharded state: ``save(..., specs=)`` records each leaf's spec in the
+manifest in the reference's string form (``PartitionSpec('data',
+'model')``). DTensor leaves are gathered whole, one leaf at a time
+(``full_tensor()``, a collective every rank of the mesh makes), and rank
+0 writes the one ``shard-0.npz`` of whole arrays; every rank returns
+after the write. ``restore(path, like, mesh=, specs=)`` reads the whole
+arrays and places each on ``mesh`` by its spec (``dist.mesh_rules``), so
+a checkpoint saved on one mesh restores on another bit for bit (the
+elastic re-shard), and a sharded checkpoint restores in the reference
+without a mesh.
 """
 from __future__ import annotations
 
@@ -27,21 +36,31 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist.mesh_rules import (Field, check_mesh_device, is_dtensor,
+                                         map_with_path, placements,
+                                         spec_string)
 
 
-def _map(tree: Any, fn: Callable, path: Tuple[str, ...] = ()) -> Any:
-    """``tree`` with each leaf replaced by ``fn(name, leaf)``; the
-    containers are rebuilt in their own types."""
-    if isinstance(tree, dict):
-        return {k: _map(tree[k], fn, path + (f"[{k!r}]",))
-                for k in sorted(tree)}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(getattr(tree, f), fn, path + (f".{f}",))
-                            for f in tree._fields))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn, path + (f"[{i}]",))
-                          for i, v in enumerate(tree))
-    return fn("/".join(path), tree)
+def _is_spec(x) -> bool:
+    """A spec (``dist.mesh_rules``): a plain tuple of axis names, tuples
+    of them, and None."""
+    return (type(x) is tuple
+            and all(e is None or isinstance(e, (str, tuple)) for e in x))
+
+
+def _name(path: tuple) -> str:
+    """The reference's leaf name of a ``map_with_path`` path."""
+    return "/".join(f".{k}" if isinstance(k, Field) else f"[{k!r}]"
+                    for k in path)
+
+
+def _map(tree: Any, fn: Callable, specs: bool = False) -> Any:
+    """``tree`` with each leaf replaced by ``fn(name, leaf)``, in the
+    reference's order; with ``specs`` a spec tuple is a leaf."""
+    return map_with_path(tree, lambda path, leaf: fn(_name(path), leaf),
+                         is_leaf=_is_spec if specs else None)
 
 
 def leaf_names(tree: Any) -> List[str]:
@@ -51,34 +70,52 @@ def leaf_names(tree: Any) -> List[str]:
     return names
 
 
-def _no_mesh(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} onto a device mesh is not ported yet (ROADMAP.md, queue A "
-        "item 9); the port saves and restores whole tensors")
-
-
 def _to_numpy(leaf) -> np.ndarray:
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()           # every rank of the mesh gathers
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
+def _ranks() -> Tuple[int, int]:
+    """(rank, world size) of the default process group; (0, 1) without
+    one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def save(ckpt_dir: str, step: int, tree: Any, specs: Any = None) -> str:
     """Atomic save of a tree of tensors (params/opt/anything) at ``step``;
-    returns the checkpoint's directory."""
-    if specs is not None:
-        raise _no_mesh("saving partition specs")
+    returns the checkpoint's directory. Under a process group every rank
+    calls it (DTensor leaves gather collectively), rank 0 writes, and all
+    return once the checkpoint is in place."""
     final = os.path.join(ckpt_dir, f"step-{step:08d}")
-    tmp = final + ".tmp-0"
-    os.makedirs(tmp, exist_ok=True)
+    rank, world = _ranks()
     arrays, manifest = {}, {"step": step, "leaves": {}}
 
     def put(name, leaf):
         arr = _to_numpy(leaf)
-        arrays[name.replace("/", "__")] = arr
-        manifest["leaves"][name] = dict(shape=list(arr.shape),
-                                        dtype=str(arr.dtype))
+        if rank == 0:
+            arrays[name.replace("/", "__")] = arr
+            manifest["leaves"][name] = dict(shape=list(arr.shape),
+                                            dtype=str(arr.dtype))
     _map(tree, put)
+    if specs is not None:
+        manifest["specs"] = {}
+        _map(specs, lambda name, sp: manifest["specs"].__setitem__(
+            name, spec_string(sp)), specs=True)
+    if rank == 0:
+        _write(final, arrays, manifest)
+    if world > 1:
+        dist.barrier()
+    return final
+
+
+def _write(final: str, arrays: dict, manifest: dict) -> None:
+    tmp = final + ".tmp-0"
+    os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "shard-0.npz"), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -87,7 +124,6 @@ def save(ckpt_dir: str, step: int, tree: Any, specs: Any = None) -> str:
     if os.path.isdir(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 _STEP_DIR = re.compile(r"^step-(\d{8})$")
@@ -114,13 +150,33 @@ def restore(path: str, like: Any, mesh=None, specs: Any = None) -> Any:
     """The checkpoint at ``path`` in the structure of ``like``: each leaf
     a tensor of the saved dtype on the device of ``like``'s leaf (the CPU
     for a non-tensor leaf), requiring grad where ``like``'s leaf does
-    (restored parameters are leaf tensors)."""
-    if mesh is not None or specs is not None:
-        raise _no_mesh("re-sharding a checkpoint")
+    (restored parameters are leaf tensors). With ``mesh`` and ``specs``
+    (a spec tree matching ``like``) each whole array is placed on
+    ``mesh`` by its spec instead: a DTensor whose local shard each rank
+    cuts from its own read of the file, with no communication; a scalar
+    whose spec is ``()`` (the optimizer's count) stays a plain tensor on
+    the mesh's device. ``like``'s tensor leaves must lie on the mesh's
+    device type: restore raises rather than move them."""
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore: give both mesh and specs, or neither")
+    spec_of = {}
+    if specs is not None:
+        _map(specs, lambda name, sp: spec_of.__setitem__(name, sp),
+             specs=True)
     with np.load(os.path.join(path, "shard-0.npz")) as data:
         def get(name, leaf):
             t = torch.from_numpy(np.array(data[name.replace("/", "__")]))
-            if isinstance(leaf, torch.Tensor):
-                t = t.to(leaf.device).requires_grad_(leaf.requires_grad)
-            return t
+            grad = isinstance(leaf, torch.Tensor) and leaf.requires_grad
+            if mesh is not None and isinstance(leaf, torch.Tensor):
+                check_mesh_device(leaf, mesh, f"restore: leaf {name}")
+            if mesh is not None and spec_of[name] == () and t.dim() == 0:
+                t = t.to(mesh.device_type)
+            elif mesh is not None:
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(t.to(mesh.device_type), mesh,
+                                      placements(spec_of[name], mesh),
+                                      src_data_rank=None)
+            elif isinstance(leaf, torch.Tensor):
+                t = t.to(leaf.device)
+            return t.requires_grad_(grad) if t.is_floating_point() else t
         return _map(like, get)

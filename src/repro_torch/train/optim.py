@@ -6,6 +6,12 @@ reference is functional; ``adamw_update`` here updates the parameters
 and both moments IN PLACE (a full-width model would otherwise hold them
 twice) and returns the same tensors with a new ``count``. Divisions by
 a schedule value are tensor divisions, as the reference writes them.
+
+DTensor leaves (the sharded step, ``train.step.ShardedStep``): each
+gradient comes placed as its parameter (the step redistributes it), the
+norm is the global norm over every rank's shards, and the update runs
+on each rank's local shards of the parameter and both moments, in
+place; the moments are DTensors placed as their parameters.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.dist.lcmp_collectives import tree_flatten
+from repro_torch.dist.mesh_rules import is_dtensor
 
 
 class AdamWState(NamedTuple):
@@ -61,9 +68,13 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, summed leaf by leaf in
-    tree order."""
-    return torch.sqrt(sum(g.to(torch.float32).square().sum()
-                          for g in tree_flatten(grads)[0]))
+    tree order (DTensor leaves: each rank's shards, then summed over the
+    mesh), as a plain tensor."""
+    total = sum(g.to(torch.float32).square().sum()
+                for g in tree_flatten(grads)[0])
+    if is_dtensor(total):
+        total = total.full_tensor()
+    return torch.sqrt(total)
 
 
 def _clip_scale(gn: torch.Tensor, max_norm) -> torch.Tensor:
@@ -82,7 +93,8 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState):
     """One AdamW step. Updates ``params``, ``state.mu`` and ``state.nu``
     in place; returns ``(params, AdamWState(count + 1, mu, nu), gnorm)``.
     The clipped gradient is formed leaf by leaf, so no clipped copy of
-    the whole gradient is held."""
+    the whole gradient is held. A DTensor gradient must be placed as its
+    parameter."""
     gnorm = global_norm(grads)
     clip = _clip_scale(gnorm, cfg.grad_clip)
     count = state.count + 1
@@ -96,6 +108,8 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: AdamWState):
     flat_m, _ = tree_flatten(state.mu)
     flat_v, _ = tree_flatten(state.nu)
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        if is_dtensor(p):           # this rank's shards, updated in place
+            p, g, m, v = (x.to_local() for x in (p, g, m, v))
         g = g.to(torch.float32) * clip
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())

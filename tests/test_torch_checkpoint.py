@@ -82,10 +82,18 @@ def test_save_restore_roundtrip(tmp_path):
     for p in tree_flatten(out["params"])[0]:
         assert p.requires_grad and p.is_leaf
     assert not out["opt"].mu["embed"].requires_grad
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ckpt.restore(path, like, mesh=object(), specs={})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ckpt.save(str(tmp_path), 5, tree, specs={})
+    with pytest.raises(ValueError, match="both mesh and specs"):
+        ckpt.restore(path, like, mesh=object())
+    # specs go to the manifest in the reference's string form
+    specs = {"a": ("data",), "b": {"c": (None,)}, "l": [(None,), ()]}
+    path = ckpt.save(str(tmp_path), 5, tree, specs=specs)
+    with open(os.path.join(path, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    assert manifest["specs"] == {"['a']": "PartitionSpec('data',)",
+                                 "['b']/['c']": "PartitionSpec(None,)",
+                                 "['l']/[0]": "PartitionSpec(None,)",
+                                 "['l']/[1]": "PartitionSpec()"}
+    assert _same(ckpt.restore(path, tree), tree)
 
 
 # -------------------------------------------------------- across packages
@@ -189,7 +197,9 @@ def test_train_resume_of_a_mamba_run(tmp_path, capsys):
 
 
 def test_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """A mesh runs under torchrun: without a process group of data x
+    model ranks, --data/--model > 1 raises."""
+    with pytest.raises(ValueError, match="WORLD_SIZE"):
         ptrain.main(COMMON + ["--data", "2"])
 
 
