@@ -152,6 +152,21 @@ the script exits non-zero and prints no result line. Phases:
    step 2 to 4, the resumed step-3 loss, a SIGTERM's emergency
    checkpoint (zamba2 is not trained: its gradient is NaN, as the
    reference's);
+19. dryrun: the multi-pod dry run (``launch.dryrun``) on fake CUDA
+   tensors over fake process groups: (a) qwen3-4b train_4k, prefill_32k
+   and decode_32k and falcon-mamba-7b long_500k on the (16, 16) mesh and
+   qwen3-4b train_4k on (2, 16, 16), each through the CLI in a
+   subprocess of its own (all at once, ``run_cells``, the CLI's
+   ``--jobs``), at depths 2 and 3 extrapolated
+   to the full depth: every record ``ok``, the backward included, its
+   roofline terms at H100 constants beside the card's name and power
+   limit; (b) phase train's cell (qwen3-4b at 4 layers, one 4096-token
+   sequence) as the sharded step on a 1 x 1 mesh, once with real tensors
+   on the card under the dry run's counter and once through
+   ``lower_cell`` on fake tensors: FLOPs equal, the dry run's peak
+   within ``DRYRUN_MEM_BAND`` of the real step's
+   ``max_memory_allocated`` increase, the step time and the share of
+   989 TFLOP/s it reaches;
 then the ``kernels`` summary line and the result line. Phase 3 also
 holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
 for bit, at 1024, 2^16 and 2^24 elements and at the train phase's two
@@ -491,6 +506,15 @@ LAUNCH_LAYERS = {"gemma2_9b": 4, "mixtral_8x7b": 1, "falcon_mamba_7b": 1,
 # would write 12-30 GB a checkpoint)
 MECHANICS_ARCHS = ("qwen3_4b", "falcon_mamba_7b", "whisper_medium")
 LAUNCH_SEQ, LAUNCH_STEPS = 4096, 3
+# Phase dryrun: the production cells it runs (arch, shape, mesh), and the
+# band within which the dry run's peak must equal a real step's
+DRYRUN_CELLS = (("qwen3_4b", "train_4k", "single"),
+                ("qwen3_4b", "prefill_32k", "single"),
+                ("qwen3_4b", "decode_32k", "single"),
+                ("falcon_mamba_7b", "long_500k", "single"),
+                ("qwen3_4b", "train_4k", "multi"))
+DRYRUN_MEM_BAND = 0.10
+H100_PEAK_FLOPS = 989e12        # dense bf16, the data sheet's
 # the hybrid-gradient check: one zamba2-1.2b train step at full width,
 # depth cut to 1 layer, at LAUNCH_SEQ; the gradient leaves non-finite
 # before clipping, the reference's set (tests/test_torch_ssm.py pins it):
@@ -3409,6 +3433,94 @@ def phase_launch_train(dev) -> dict:
     return out
 
 
+def dryrun_real_step(dev) -> dict:
+    """Phase train's cell as the sharded step on a 1 x 1 mesh (a fake
+    group of one rank: no collective runs): once on the card with real
+    weights and a real batch under the dry run's counter, then timed
+    without it, then through ``lower_cell`` on fake tensors."""
+    from repro_torch.data.synth import batch_at
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models.arch import init_params
+    cfg = train_config()
+    cell = ShapeCell("train_4k_1x4096", "train", TRAIN_SEQ, 1)
+    with dryrun.fake_group(1):
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, 0, device=dev)
+        batch = batch_at(cfg, 0, batch=1, seq=TRAIN_SEQ, device=dev)
+        fn, state = dryrun.build_cell(cfg, cell, mesh, params=params,
+                                      inputs=batch)
+        del params
+        real = dryrun.trace_step(fn, state)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        step_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, _, metrics = fn()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        loss = float(metrics["loss"])
+        del fn, state, batch, metrics
+        torch.cuda.empty_cache()
+        fake, meta = dryrun.lower_cell(cfg, cell, mesh)
+    dry_peak = fake.mem["args"] + fake.mem["temp"]
+    best = min(step_ms)
+    return {"config": cfg.name, "layers": cfg.n_layers, "tokens": TRAIN_SEQ,
+            "flops_real": real.flops, "flops_dryrun": fake.flops,
+            "hbm_bytes_real": real.hbm_bytes, "hbm_bytes_dryrun": fake.hbm_bytes,
+            "collectives": len(real.collectives) + len(fake.collectives),
+            "peak_bytes_real": peak, "peak_bytes_dryrun": dry_peak,
+            "mem_dryrun": fake.mem, "mem_ratio": dry_peak / peak,
+            "step_ms": step_ms, "loss": loss,
+            "achieved_tflops": real.flops / (best / 1e3) / 1e12,
+            "share_of_989": real.flops / (best / 1e3) / H100_PEAK_FLOPS,
+            "dryrun_s": meta["t_compile_s"]}
+
+
+def phase_dryrun(dev, smi: str) -> dict:
+    """(a) The production cells of ``DRYRUN_CELLS`` through the dry run's
+    parallel runner (``launch.dryrun.run_cells``, the CLI's ``--jobs``:
+    one CLI process a cell, all at once), then (b) ``dryrun_real_step``
+    holds the counter against a real step on the card; both must
+    pass."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    records = dryrun.run_cells(DRYRUN_CELLS, device="cuda",
+                               jobs=len(DRYRUN_CELLS), timeout=600)
+    cells_s = time.perf_counter() - t0
+    real = dryrun_real_step(dev)
+    cells, failed = [], []
+    for (arch, shape, mesh), r in zip(DRYRUN_CELLS, records):
+        if r["status"] != "ok":
+            failed.append(dict(arch=arch, shape=shape, mesh=mesh, **{
+                k: r.get(k) for k in ("status", "error", "reason", "trace")}))
+            continue
+        cells.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "chips", "status", "depth_corrected",
+            "flops_per_device", "hbm_bytes_per_device",
+            "coll_wire_bytes_per_chip", "coll_by_kind", "bytes_per_device",
+            "t_comp", "t_mem", "t_coll", "bottleneck", "useful_ratio",
+            "constants", "t_lower_s", "t_compile_s")})
+    out = {"phase": "dryrun", "nvidia_smi": smi, "cells": cells,
+           "failed": failed, "cells_s": cells_s, "real_step": real}
+    emit(out)
+    require(not failed, f"dryrun: every cell ok ({len(failed)} failed)")
+    require(real["collectives"] == 0, "dryrun: a 1 x 1 mesh runs no collective")
+    require(real["flops_real"] == real["flops_dryrun"] > 0,
+            "dryrun: the dry run's FLOPs equal the real step's")
+    require(abs(real["mem_ratio"] - 1) <= DRYRUN_MEM_BAND,
+            f"dryrun: the dry run's peak within {DRYRUN_MEM_BAND:.0%} of the "
+            f"real step's (ratio {real['mem_ratio']:.4f})")
+    require(math.isfinite(real["loss"]), "dryrun: the real step's loss is finite")
+    return out
+
+
 def kernel_summary(checks: dict, runs: dict, train: dict,
                    sweeps: dict, dist: dict) -> dict:
     """The ``kernels`` line: every TPU kernel, each at its main-path
@@ -3509,6 +3621,7 @@ def main() -> int:
     phase_families(dev)
     phase_serve(dev)
     phase_launch_train(dev)
+    phase_dryrun(dev, info["nvidia_smi"])
     emit(kernel_summary(checks, {**runs, **packet_runs, "cosim": cosim,
                                  "switch": switch}, train,
                         {**sweeps, **fidelity}, dist))

@@ -22,6 +22,11 @@ axis (``layers``/``enc_layers``) never shard dim 0. ``placements`` turns
 a spec into DTensor placements on a ``DeviceMesh`` with named dims, and
 ``spec_string`` into the reference's checkpoint manifest string.
 
+For the model on DTensors, ``pin_layout`` redistributes an activation
+to a plain layout (its gradient back in the backward), ``on_shards``
+runs a function on each rank's own shards, and ``lookup_rows`` is an
+embedding lookup that keeps the vocab sharded.
+
 The reference's ``layers.MOE_CAPACITY_AXIS`` (a knob that shards the moe
 dispatch's capacity dim, None by default) is not ported: the moe
 dispatch runs on a mesh without it.
@@ -30,6 +35,8 @@ from __future__ import annotations
 
 import sys
 from typing import Any, Callable, Dict, Optional
+
+import torch
 
 # leaf name -> which dim carries the tensor-parallel "model" axis
 _TP_LAST = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "dt_proj"}
@@ -207,3 +214,90 @@ class Rules:
     def cache_specs(self, cache):
         return map_with_path(cache, lambda path, leaf:
                              self._cache_leaf_spec(path, tuple(leaf.shape)))
+
+
+def pin_layout(t, model_dim: Optional[int] = None, *, rows: bool = True):
+    """A DTensor activation redistributed to a plain layout: dim 0 (the
+    batch rows) on the mesh's ``pod`` and ``data`` dims where it divides
+    their product (as ``Rules`` places batches and caches), ``model_dim``
+    on ``model`` where it divides it, every other mesh dim replicated.
+    Its gradient is redistributed back in the backward, so the ops on
+    either side see only ``Shard``, ``Replicate`` and ``Partial``
+    placements: DTensor's view rules otherwise hand the attention
+    activations and gradients strided shards, whose sharding
+    propagation reads a tensor back to the host (and fails under fake
+    tensors). With ``rows=False`` dim 0 is not a batch (a parameter
+    that meets activations elementwise): replicated like the rest. A
+    plain tensor is returned as it is."""
+    if not is_dtensor(t):
+        return t
+    mesh = t.device_mesh
+    return t.redistribute(mesh, _pinned(tuple(mesh.mesh_dim_names),
+                                        tuple(mesh.shape), tuple(t.shape),
+                                        model_dim, rows))
+
+
+def _pinned(names: tuple, sizes: tuple, shape: tuple,
+            model_dim: Optional[int], rows: bool) -> list:
+    """``pin_layout``'s placements for a tensor of ``shape`` on a mesh
+    with dims ``names`` of ``sizes``."""
+    from torch.distributed.tensor import Replicate, Shard
+    size = dict(zip(names, sizes))
+    dp = size.get("pod", 1) * size.get("data", 1)
+    rows = rows and len(shape) > 0 and shape[0] % dp == 0
+    out = []
+    for name in names:
+        if name in ("pod", "data") and rows:
+            out.append(Shard(0))
+        elif (name == "model" and model_dim is not None
+              and shape[model_dim] % size["model"] == 0):
+            out.append(Shard(model_dim))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def on_shards(fn: Callable, *args, like=None, placements=None):
+    """``fn(*args)`` on each rank's local shards when the arguments are
+    DTensors (all on one mesh, laid out so that ``fn`` needs no data of
+    another rank), the result placed as ``placements``, or as ``like``'s
+    (default: the first argument's). Where the result is sharded on a
+    mesh dim and an argument replicated, that argument's gradient is
+    each rank's part (``Partial``). Plain tensors go to ``fn`` as they
+    are."""
+    if not is_dtensor(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial
+    first = args[0]
+    placements = placements or (first if like is None else like).placements
+    out = fn(*(a.to_local(grad_placements=[
+        Partial() if o.is_shard() and p.is_replicate() else p
+        for o, p in zip(placements, a.placements)]) for a in args))
+    return DTensor.from_local(out, first.device_mesh, placements,
+                              run_check=False)
+
+
+def lookup_rows(table, idx):
+    """``table[idx]`` for a DTensor ``table`` (V, D) and DTensor indices:
+    the vocab stays sharded over ``model`` where it divides (the columns
+    are gathered), each rank looks up its own rows of ``idx`` in its own
+    vocab shard (0 elsewhere), and the shards' rows are summed over
+    ``model``. (DTensor's indexing and embedding rules gather the whole
+    batch, fail, or mask the wrong rows, by torch version.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    split = ("model" in names
+             and table.shape[0] % axis_sizes_of(mesh)["model"] == 0)
+    table = table.redistribute(mesh, [
+        Shard(0) if split and n == "model" else Replicate() for n in names])
+    idx = pin_layout(idx)
+
+    def rows(tab, i):
+        v = tab.shape[0]
+        j = i - (mesh.get_local_rank("model") * v if split else 0)
+        mine = ((j >= 0) & (j < v))[..., None]
+        return torch.where(mine, tab[j.clamp(0, v - 1)], 0.0)
+    return on_shards(rows, table, idx, placements=[
+        Partial() if split and n == "model" else p
+        for n, p in zip(names, idx.placements)])

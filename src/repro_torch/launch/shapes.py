@@ -8,14 +8,17 @@ Shapes (LM family):
   long_500k    seq=524288(KV) global_batch=1  -> serve_step; SSM/hybrid only
 
 long_500k is skipped for pure full-attention archs; every arch runs the
-other three cells. The reference's ``input_specs`` (the abstract inputs
-the dry-run lowers) waits for ``launch/dryrun`` (ROADMAP.md queue A
-item 11).
+other three cells. ``input_specs`` gives the stand-ins of a cell's inputs
+that the dry run (``launch/dryrun``) runs on: tensors without storage,
+``meta`` tensors by default, or fake tensors when called under a
+``FakeTensorMode`` with the mesh's device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,3 +51,30 @@ def skip_reason(cfg, shape: str) -> Optional[str]:
         return None
     return ("full-attention arch: 500k-context decode requires "
             "sub-quadratic attention (DESIGN.md §4)")
+
+
+def input_specs(cfg, cell: ShapeCell, *, device="meta") -> Dict:
+    """Stand-ins for every model input of this cell, the reference's
+    leaves in shape and dtype: ``tokens`` and ``labels`` (B, S) int32,
+    and ``extra`` float32 for vlm (B, n_patches, D) and encdec
+    (B, enc_seq, D); for decode ``tokens`` (B, 1) int32, a 0-d int32
+    ``pos`` and the family's ``cache``."""
+    from repro_torch.serve.decode import init_cache
+    B, S = cell.batch, cell.seq
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    if cell.kind in ("train", "prefill"):
+        batch = dict(tokens=sds((B, S), torch.int32),
+                     labels=sds((B, S), torch.int32))
+        if cfg.family == "vlm":
+            batch["extra"] = sds((B, cfg.n_patches, cfg.d_model),
+                                 torch.float32)
+        if cfg.family == "encdec":
+            batch["extra"] = sds((B, cfg.enc_seq, cfg.d_model), torch.float32)
+        return batch
+    # decode: one new token against a seq-sized KV cache
+    return dict(tokens=sds((B, 1), torch.int32),
+                pos=sds((), torch.int32),
+                cache=init_cache(cfg, B, S, device=device))

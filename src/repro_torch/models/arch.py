@@ -32,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as devmod
+from repro_torch.dist.mesh_rules import is_dtensor, lookup_rows, pin_layout
 from repro_torch.models import layers as L
 
 # scales, initialized to 0
@@ -215,15 +216,21 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                 positions=None, use_rope: bool = True) -> torch.Tensor:
     """Full-sequence attention (train/prefill). kv_x: cross-attn source."""
     B, S, D = x.shape
-    h = L.rms_norm(x, p["ln"])
+    h = pin_layout(L.rms_norm(x, p["ln"]))
     src = h if kv_x is None else kv_x
-    q = h @ p["wq"].to(h.dtype)
-    k = src @ p["wk"].to(h.dtype)
-    v = src @ p["wv"].to(h.dtype)
+    q = pin_layout(h @ p["wq"].to(h.dtype))
+    k = pin_layout(src @ p["wk"].to(h.dtype))
+    v = pin_layout(src @ p["wv"].to(h.dtype))
     Sk = src.shape[1]
-    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
-    k = k.reshape(B, Sk, cfg.n_kv, cfg.hd)
-    v = v.reshape(B, Sk, cfg.n_kv, cfg.hd)
+    window = cfg.window if (cfg.window and layer_local) else None
+    block = bool(window and S > 2 * window and S % window == 0
+                 and kv_x is None)
+    # the queries' rows on a mesh's "model" dim (the block path shards
+    # each block's rows instead)
+    q = pin_layout(q.reshape(B, S, cfg.n_heads, cfg.hd), None if block else 1)
+    # (and their gradients: the backward would shard the keys' rows)
+    k = pin_layout(k.reshape(B, Sk, cfg.n_kv, cfg.hd))
+    v = pin_layout(v.reshape(B, Sk, cfg.n_kv, cfg.hd))
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"])
         k = L.rms_norm(k, p["k_norm"])
@@ -232,32 +239,31 @@ def _attn_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                else torch.arange(S, device=x.device)[None])
         q = L.rope(q, pos, cfg.rope_theta)
         k = L.rope(k, pos, cfg.rope_theta)
-    window = cfg.window if (cfg.window and layer_local) else None
-    if window and S > 2 * window and S % window == 0 and kv_x is None:
+    if block:
         o = L.local_block_attention(q, k, v, window=window,
                                     softcap=cfg.attn_softcap)
     else:
         o = L.gqa_attention(q, k, v, causal=causal, window=window,
                             softcap=cfg.attn_softcap)
-    o = o.reshape(B, S, cfg.n_heads * cfg.hd)
-    return x + o @ p["wo"].to(h.dtype)
+    o = pin_layout(o.reshape(B, S, cfg.n_heads * cfg.hd), 2)
+    return x + pin_layout(o @ p["wo"].to(h.dtype))
 
 
 def _mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = L.rms_norm(x, p["ln"])
-    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    h = pin_layout(L.rms_norm(x, p["ln"]))
+    return x + pin_layout(L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]))
 
 
 def _moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = L.rms_norm(x, p["ln"])
+    h = pin_layout(L.rms_norm(x, p["ln"]))
     return x + L.moe_block(h, p["router"], p["w_gate"], p["w_up"],
                            p["w_down"], top_k=cfg.top_k)
 
 
 def _mamba_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = L.rms_norm(x, p["ln"])
+    h = pin_layout(L.rms_norm(x, p["ln"]))
     fn = L.mamba1_scan if cfg.mamba_version == 1 else L.mamba2_ssd
-    return x + fn(h, p)
+    return x + pin_layout(fn(h, p))
 
 
 def _decoder_layer(cfg: ArchConfig, params: dict, x: torch.Tensor,
@@ -293,7 +299,10 @@ def embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings in the activation dtype; gemma's dense configs
     scale them by sqrt(d_model) cast to that dtype first (59.75 in
     bfloat16 for d_model 3584)."""
-    x = params["embed"][tokens].to(cfg.adt)
+    table = params["embed"]
+    x = pin_layout(lookup_rows(table, tokens)) if is_dtensor(table) \
+        else table[tokens]
+    x = x.to(cfg.adt)
     if cfg.family == "dense" and cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.adt,
                              device=x.device)
@@ -302,7 +311,7 @@ def embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm, untied LM head and ``final_softcap`` -> f32 logits."""
-    x = L.rms_norm(x, params["final_ln"])
+    x = pin_layout(L.rms_norm(x, params["final_ln"]))
     logits = (x @ params["lm_head"].to(x.dtype).t()).to(torch.float32)
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap

@@ -5,6 +5,10 @@ Counterpart of ``repro/models/layers.py``: ``rms_norm``, ``rope``,
 ``mamba1_scan`` and ``mamba2_ssd``, op for op as the reference writes
 them (weights f32, cast to the activation type at use; attention logits
 and softmax in f32, masked with -1e30; the mamba recurrences in f32).
+The attention einsums run as batched matmuls over the same operands.
+On DTensors (the sharded step, the dry run) some activations are pinned
+to plain layouts and the mamba-1 recurrence runs on each rank's shards
+(``dist.mesh_rules``); on plain tensors those calls do nothing.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.dist.mesh_rules import is_dtensor, on_shards, pin_layout
 
 
 # ------------------------------------------------------------------- norms
@@ -47,6 +53,26 @@ def _softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return torch.tanh(logits / cap) * cap
 
 
+def _scores(qg, k):
+    """``einsum("...qhgd,...khd->...hgqk", qg, k)`` as one batched
+    matmul over (..., h, g): the query rows stay a dim of their own, so a
+    query-sharded DTensor keeps a plain ``Shard`` placement (einsum would
+    fold them with ``g`` into one dim)."""
+    n = qg.dim()
+    qp = qg.movedim(n - 4, n - 2)                          # (...,h,g,q,d)
+    kt = k.movedim(n - 4, n - 3).transpose(-1, -2)         # (...,h,d,k)
+    return torch.matmul(qp, kt.unsqueeze(-3))
+
+
+def _weighted(probs, v):
+    """``einsum("...hgqk,...khd->...qhgd", probs, v)`` as one batched
+    matmul (see ``_scores``)."""
+    n = v.dim()
+    vp = v.movedim(n - 3, n - 2)                           # (...,h,k,d)
+    out = torch.matmul(probs, vp.unsqueeze(-3))            # (...,h,g,q,d)
+    return out.movedim(-2, -4)
+
+
 def gqa_attention(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None,
                   softcap: Optional[float] = None, q_offset=0):
@@ -58,7 +84,7 @@ def gqa_attention(q, k, v, *, causal: bool = True,
     Sk, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
     qg = q.reshape(B, Sq, Hkv, g, D)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
+    logits = _scores(qg, k).to(torch.float32)              # (B,Hkv,g,Sq,Sk)
     logits = logits / math.sqrt(D)
     logits = _softcap(logits, softcap)
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
@@ -70,8 +96,14 @@ def gqa_attention(q, k, v, *, causal: bool = True,
         mask = mask & (kpos > qpos - window)
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    out = _weighted(probs, v)                              # (B,Sq,Hkv,g,D)
     return out.reshape(B, Sq, Hq, D)
+
+
+def _previous_block(t: torch.Tensor) -> torch.Tensor:
+    """(B,nb,...) -> each block's previous block, zeros for block 0."""
+    pad = [0, 0] * (t.dim() - 2) + [1, 0]
+    return F.pad(t, pad)[:, :-1]
 
 
 def local_block_attention(q, k, v, *, window: int,
@@ -86,13 +118,16 @@ def local_block_attention(q, k, v, *, window: int,
     qb = q.reshape(B, nb, window, Hq, D)
     kb = k.reshape(B, nb, window, Hkv, D)
     vb = v.reshape(B, nb, window, Hkv, D)
-    kprev = F.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
-    vprev = F.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    # each block's previous one, zeros before block 0 (on a DTensor,
+    # each rank pads its own rows: torch 2.11's DTensor fails to plan pad)
+    kprev = on_shards(_previous_block, kb)
+    vprev = on_shards(_previous_block, vb)
     k2 = torch.cat([kprev, kb], dim=2)                 # (B,nb,2W,Hkv,D)
     v2 = torch.cat([vprev, vb], dim=2)
     g = Hq // Hkv
-    qg = qb.reshape(B, nb, window, Hkv, g, D)
-    logits = torch.einsum("bnqhgd,bnkhd->bnhgqk", qg, k2).to(torch.float32)
+    # a DTensor's block rows on the mesh's "model" dim
+    qg = pin_layout(qb.reshape(B, nb, window, Hkv, g, D), 2)
+    logits = _scores(qg, k2).to(torch.float32)             # (B,nb,h,g,q,k)
     logits = logits / math.sqrt(D)
     logits = _softcap(logits, softcap)
     qpos = torch.arange(window, device=q.device)[:, None] + window
@@ -103,7 +138,7 @@ def local_block_attention(q, k, v, *, window: int,
     m = torch.where(first, mask0[None], mask[None])    # (nb,W,2W)
     logits = torch.where(m[None, :, None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bnhgqk,bnkhd->bnqhgd", probs, v2)
+    out = pin_layout(_weighted(probs, v2))    # whole blocks, then merged
     return out.reshape(B, S, Hq, D)
 
 
@@ -155,8 +190,10 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     gsz = min(group_size, T)
     G = T // gsz
     xt = x.reshape(G, gsz, D)
-    logits = torch.einsum("gtd,de->gte", xt.to(torch.float32),
-                          router_w.to(torch.float32))
+    # the dispatch below runs on whole groups: a DTensor's rows on the
+    # mesh's batch dims, replicated over "model"
+    logits = pin_layout(torch.einsum("gtd,de->gte", xt.to(torch.float32),
+                                     router_w.to(torch.float32)))
     probs = torch.softmax(logits, dim=-1)
     gate_vals, experts = torch.topk(probs, top_k, dim=-1)       # (G,t,k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -173,14 +210,16 @@ def moe_block(x, router_w, w_gate, w_up, w_down, *, top_k: int,
 
     slot = _one_hot(pos.to(torch.int32), cap, x.dtype)
     disp = slot * keep[..., None].to(x.dtype)                   # (G,t,E,C)
-    xe = torch.einsum("gtec,gtd->gecd", disp, xt)               # (G,E,C,D)
+    xe = pin_layout(torch.einsum("gtec,gtd->gecd", disp, xt))   # (G,E,C,D)
 
-    h = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate.to(x.dtype)))
-    h = h * torch.einsum("gecd,edf->gecf", xe, w_up.to(x.dtype))
-    ye = torch.einsum("gecf,efd->gecd", h, w_down.to(x.dtype))
+    h = F.silu(pin_layout(torch.einsum("gecd,edf->gecf", xe,
+                                       w_gate.to(x.dtype)), 3))
+    h = h * pin_layout(torch.einsum("gecd,edf->gecf", xe,
+                                    w_up.to(x.dtype)), 3)
+    ye = pin_layout(torch.einsum("gecf,efd->gecd", h, w_down.to(x.dtype)))
 
     comb = disp * gates_e[..., None].to(x.dtype)                # (G,t,E,C)
-    yt = torch.einsum("gtec,gecd->gtd", comb, ye)
+    yt = pin_layout(torch.einsum("gtec,gecd->gtd", comb, ye))
     return yt.reshape(B, S, D)
 
 
@@ -193,7 +232,12 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def causal_conv4(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal convolution of kernel 4 over axis 1 of (B,S,C):
-    the reference's sum of four shifted products, added in its order."""
+    the reference's sum of four shifted products, added in its order.
+    On DTensors each rank convolves its own rows and channels (the
+    channels on ``model``)."""
+    if is_dtensor(x):
+        return on_shards(causal_conv4, pin_layout(x, 2),
+                         pin_layout(w, 1, rows=False))
     S = x.shape[1]
     xpad = F.pad(x, (0, 0, 3, 0))
     out = 0
@@ -226,6 +270,14 @@ def _mamba1_chunk(h: torch.Tensor, A: torch.Tensor, xi: torch.Tensor,
     return h, y
 
 
+def _replicated(p: dict, names) -> dict:
+    """``p`` with the DTensor leaves ``names`` (weights the recurrence
+    meets elementwise) replicated over the mesh; plain leaves as they
+    are."""
+    return {k: pin_layout(v, rows=False) if k in names else v
+            for k, v in p.items()}
+
+
 def mamba1_scan(x: torch.Tensor, p: dict, *, chunk: int = 128):
     """Mamba-1 (S6) selective scan. x: (B,S,D). ``p``: in_proj (D,2Di),
     conv_w (4,Di), x_proj (Di,dt_rank+2N), dt_proj (dt_rank,Di), A_log
@@ -238,28 +290,41 @@ def mamba1_scan(x: torch.Tensor, p: dict, *, chunk: int = 128):
     dt_rank = p["dt_proj"].shape[0]
     N = p["A_log"].shape[1]
 
-    xz = x @ p["in_proj"].to(x.dtype)
+    p = _replicated(p, ("A_log", "D_skip"))
+    # on DTensors: the projections split below replicated over "model",
+    # the channels of each (B,S,Di) activation on it
+    xz = pin_layout(x @ p["in_proj"].to(x.dtype))
     xi, z = xz.chunk(2, dim=-1)                               # (B,S,Di)
     xi = F.silu(causal_conv4(xi, p["conv_w"].to(x.dtype)))
 
-    proj = xi @ p["x_proj"].to(x.dtype)
+    proj = pin_layout(xi @ p["x_proj"].to(x.dtype))
     dt, Bc, Cc = proj.split([dt_rank, N, N], dim=-1)
-    dt = softplus(dt @ p["dt_proj"].to(x.dtype))
+    dt = softplus(pin_layout(dt @ p["dt_proj"].to(x.dtype), 2))
     A = -torch.exp(p["A_log"].to(torch.float32))              # (Di,N)
 
-    xs = [a.to(torch.float32) for a in (xi, dt, Bc, Cc)]
-    h = torch.zeros((B, A.shape[0], N), dtype=torch.float32, device=x.device)
-    ys = []
-    for c in range(nchunk):
-        part = [a[:, c * chunk:(c + 1) * chunk] for a in xs]
-        if torch.is_grad_enabled():
-            h, y = checkpoint(_mamba1_chunk, h, A, *part, use_reentrant=False)
-        else:
-            h, y = _mamba1_chunk(h, A, *part)
-        ys.append(y)
-    y = torch.cat(ys, 1).to(x.dtype)
+    def scan(xi, dt, Bc, Cc, A):
+        xs = [a.to(torch.float32) for a in (xi, dt, Bc, Cc)]
+        h = torch.zeros((xi.shape[0], A.shape[0], N), dtype=torch.float32,
+                        device=xi.device)
+        ys = []
+        for c in range(nchunk):
+            part = [a[:, c * chunk:(c + 1) * chunk] for a in xs]
+            if torch.is_grad_enabled():
+                h, y = checkpoint(_mamba1_chunk, h, A, *part,
+                                  use_reentrant=False)
+            else:
+                h, y = _mamba1_chunk(h, A, *part)
+            ys.append(y)
+        return torch.cat(ys, 1)
+
+    # on DTensors each rank scans its own rows and channels (the
+    # channels on "model"): one local loop, not a DTensor op a position
+    xi, dt = pin_layout(xi, 2), pin_layout(dt, 2)
+    y = on_shards(scan, xi, dt, pin_layout(Bc), pin_layout(Cc),
+                  pin_layout(A, 0, rows=False)).to(x.dtype)
     y = y + xi * p["D_skip"].to(x.dtype)
-    y = y * F.silu(z)
+    # (its gradient too, see mamba2_ssd)
+    y = pin_layout(y * F.silu(pin_layout(z, 2)))
     return y @ p["out_proj"].to(x.dtype)
 
 
@@ -280,43 +345,55 @@ def mamba2_ssd(x: torch.Tensor, p: dict, *, chunk: int = 128):
     P = Di // H
     N = (p["in_proj"].shape[1] - 2 * Di - H) // 2
 
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    p = _replicated(p, ("A_log", "D_skip", "norm_scale"))
+    # the projections split below, replicated over a mesh's "model" dim
+    zxbcdt = pin_layout(x @ p["in_proj"].to(x.dtype))
     z, xbc, dt = zxbcdt.split([Di, Di + 2 * N, H], dim=-1)
-    xbc = F.silu(causal_conv4(xbc, p["conv_w"].to(x.dtype)))
+    xbc = pin_layout(F.silu(causal_conv4(xbc, p["conv_w"].to(x.dtype))))
     xi, Bc, Cc = xbc.split([Di, N, N], dim=-1)
-    dt = softplus(dt.to(torch.float32))                       # (B,S,H)
-    A = -torch.exp(p["A_log"].to(torch.float32))              # (H,)
+    def ssd(xi, Bc, Cc, dt, A_log, D_skip):
+        """(B,S,Di) ssm output of the block's inputs, in x's dtype."""
+        B = xi.shape[0]
+        dt = softplus(dt.to(torch.float32))                   # (B,S,H)
+        A = -torch.exp(A_log.to(torch.float32))               # (H,)
 
-    xh = xi.reshape(B, nb, chunk, H, P).to(torch.float32)
-    Bh = Bc.reshape(B, nb, chunk, N).to(torch.float32)
-    Ch = Cc.reshape(B, nb, chunk, N).to(torch.float32)
-    dth = dt.reshape(B, nb, chunk, H)
+        xh = xi.reshape(B, nb, chunk, H, P).to(torch.float32)
+        Bh = Bc.reshape(B, nb, chunk, N).to(torch.float32)
+        Ch = Cc.reshape(B, nb, chunk, N).to(torch.float32)
+        dth = dt.reshape(B, nb, chunk, H)
 
-    dA = dth * A                                              # (B,nb,c,H)
-    cs = torch.cumsum(dA, dim=2)
-    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]         # (B,nb,c,c,H)
-    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=x.device))
-    Lm = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
-    att = torch.einsum("bncm,bnkm->bnck", Ch, Bh)             # (B,nb,c,c)
-    att = att[..., None] * Lm                                 # (B,nb,c,c,H)
-    y_intra = torch.einsum("bnckh,bnkh,bnkhp->bnchp", att, dth, xh)
+        dA = dth * A                                          # (B,nb,c,H)
+        cs = torch.cumsum(dA, dim=2)
+        seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (B,nb,c,c,H)
+        causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                       device=xi.device))
+        Lm = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+        att = torch.einsum("bncm,bnkm->bnck", Ch, Bh)         # (B,nb,c,c)
+        att = att[..., None] * Lm                             # (B,nb,c,c,H)
+        y_intra = torch.einsum("bnckh,bnkh,bnkhp->bnchp", att, dth, xh)
 
-    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)           # (B,nb,c,H)
-    state = torch.einsum("bncm,bnch,bnchp->bnhmp", Bh, dth * decay_to_end,
-                         xh)                                  # (B,nb,H,N,P)
-    chunk_decay = torch.exp(cs[:, :, -1, :])                  # (B,nb,H)
-    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-    h_prev = []
-    for c in range(nb):                 # state entering chunk c
-        h_prev.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + state[:, c]
-    h_prev = torch.stack(h_prev, 1)                           # (B,nb,H,N,P)
-    decay_in = torch.exp(cs)                                  # (B,nb,c,H)
-    y_inter = torch.einsum("bncm,bnch,bnhmp->bnchp", Ch, decay_in, h_prev)
+        decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)       # (B,nb,c,H)
+        state = torch.einsum("bncm,bnch,bnchp->bnhmp", Bh,
+                             dth * decay_to_end, xh)          # (B,nb,H,N,P)
+        chunk_decay = torch.exp(cs[:, :, -1, :])              # (B,nb,H)
+        h = torch.zeros((B, H, N, P), dtype=torch.float32, device=xi.device)
+        h_prev = []
+        for c in range(nb):                 # state entering chunk c
+            h_prev.append(h)
+            h = h * chunk_decay[:, c, :, None, None] + state[:, c]
+        h_prev = torch.stack(h_prev, 1)                       # (B,nb,H,N,P)
+        decay_in = torch.exp(cs)                              # (B,nb,c,H)
+        y_inter = torch.einsum("bncm,bnch,bnhmp->bnchp", Ch, decay_in, h_prev)
 
-    y = (y_intra + y_inter).reshape(B, S, H, P)
-    y = y + xh.reshape(B, S, H, P) * p["D_skip"].to(torch.float32)[None, None, :, None]
-    y = y.reshape(B, S, Di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_scale"])
+        y = (y_intra + y_inter).reshape(B, S, H, P)
+        y = y + xh.reshape(B, S, H, P) \
+            * D_skip.to(torch.float32)[None, None, :, None]
+        return y.reshape(B, S, Di).to(x.dtype)
+
+    # on DTensors each rank runs the block on its own rows (replicated
+    # over "model"), and DTensor's rules meet none of its ops
+    y = on_shards(ssd, xi, Bc, Cc, dt, p["A_log"], p["D_skip"])
+    # replicated over "model", and so its gradient, which out_proj's
+    # backward would hand back sharded on the heads
+    y = pin_layout(rms_norm(y * F.silu(z), p["norm_scale"]))
     return y @ p["out_proj"].to(x.dtype)

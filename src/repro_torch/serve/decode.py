@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as devmod
+from repro_torch.dist.mesh_rules import on_shards, pin_layout
 from repro_torch.models import arch as A
 from repro_torch.models import layers as L
 from repro_torch.models.arch import ArchConfig
@@ -39,10 +40,11 @@ from repro_torch.models.arch import ArchConfig
 # ----------------------------------------------------------------- caches
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None, *,
                device=devmod.DEFAULT) -> dict:
-    """The family's zeroed cache (module docstring) on ``device``; the
-    attention and conv leaves in ``dtype`` (default: the activation
-    dtype), the ssm states in float32."""
-    dev = devmod.resolve(device)
+    """The family's zeroed cache (module docstring) on ``device`` (or
+    ``"meta"``, shapes without storage); the attention and conv leaves
+    in ``dtype`` (default: the activation dtype), the ssm states in
+    float32."""
+    dev = devmod.resolve_or_meta(device)
     dtype = dtype or cfg.adt
     Lx, B = cfg.n_layers, batch
     Di = cfg.ssm_expand * cfg.d_model
@@ -96,11 +98,11 @@ def _attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, kc: torch.Tensor,
     (a cross-attention cache is read whole, unmasked, and not written).
     Returns the residual stream after attention."""
     B = x.shape[0]
-    h = L.rms_norm(x, p["ln"])
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, 1, cfg.n_heads, cfg.hd)
+    h = pin_layout(L.rms_norm(x, p["ln"]))
+    q = pin_layout(h @ p["wq"].to(h.dtype)).reshape(B, 1, cfg.n_heads, cfg.hd)
     if not cross:
-        k = (h @ p["wk"].to(h.dtype)).reshape(B, 1, cfg.n_kv, cfg.hd)
-        v = (h @ p["wv"].to(h.dtype)).reshape(B, 1, cfg.n_kv, cfg.hd)
+        k = pin_layout(h @ p["wk"].to(h.dtype)).reshape(B, 1, cfg.n_kv, cfg.hd)
+        v = pin_layout(h @ p["wv"].to(h.dtype)).reshape(B, 1, cfg.n_kv, cfg.hd)
         if cfg.qk_norm:
             q = L.rms_norm(q, p["q_norm"])
             k = L.rms_norm(k, p["k_norm"])
@@ -109,28 +111,45 @@ def _attn_decode(p: dict, cfg: ArchConfig, x: torch.Tensor, kc: torch.Tensor,
             q = L.rope(q, pp, cfg.rope_theta)
             k = L.rope(k, pp, cfg.rope_theta)
         at = pos.reshape(1)
-        kc.index_copy_(1, at, k.to(kc.dtype))
-        vc.index_copy_(1, at, v.to(vc.dtype))
+
+        def write(c, new):
+            c.index_copy_(1, at, new)
+            return c
+        # each rank writes its own shards (the new rows laid out as the
+        # cache: DTensor has no rule for index_copy_)
+        on_shards(write, kc, pin_layout(k.to(kc.dtype), 2))
+        on_shards(write, vc, pin_layout(v.to(vc.dtype), 2))
     elif cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"])
 
     Smax = kc.shape[1]
     g = cfg.n_heads // cfg.n_kv
-    qg = q.reshape(B, 1, cfg.n_kv, g, cfg.hd)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc).to(torch.float32)
-    logits = logits / math.sqrt(cfg.hd)
-    if cfg.attn_softcap:
-        logits = torch.tanh(logits / cfg.attn_softcap) * cfg.attn_softcap
+    mask = None
     if not cross:
         kpos = torch.arange(Smax, device=x.device)
         mask = kpos <= pos
         if local and cfg.window:
             mask = mask & (kpos > pos - cfg.window)
-        logits = torch.where(mask, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", probs, vc)
-    o = o.reshape(B, 1, cfg.n_heads * cfg.hd)
-    return x + o @ p["wo"].to(h.dtype)
+
+    def attend(q4, kc, vc):
+        """(B,Kv,g,hd) queries against (B,S,Kv,hd) keys and values ->
+        (B,Kv,g,hd): one matmul over (B,Kv) each way."""
+        logits = torch.matmul(q4, kc.movedim(1, 2).transpose(-1, -2))
+        logits = logits.to(torch.float32) / math.sqrt(cfg.hd)
+        if cfg.attn_softcap:
+            logits = torch.tanh(logits / cfg.attn_softcap) * cfg.attn_softcap
+        if mask is not None:
+            logits = torch.where(mask, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        return torch.matmul(probs, vc.movedim(1, 2))
+
+    # the kv heads on the cache's "model" placement; each rank attends
+    # with its own shards (DTensor has no rule for a matmul over a batch
+    # sharded on two mesh dims)
+    q4 = pin_layout(q.reshape(B, cfg.n_kv, g, cfg.hd), 1)
+    o = on_shards(attend, q4, pin_layout(kc, 2), pin_layout(vc, 2))
+    o = pin_layout(o.reshape(B, 1, cfg.n_heads * cfg.hd), 2)
+    return x + pin_layout(o @ p["wo"].to(h.dtype))
 
 
 # ----------------------------------------------------------- mamba decode
@@ -147,49 +166,68 @@ def _mamba1_decode(p: dict, x: torch.Tensor, conv: torch.Tensor,
                    ssm: torch.Tensor) -> torch.Tensor:
     """One Mamba-1 step. As the reference's decode (and unlike its
     forward, which casts first), ``dt * xi`` multiplies in the activation
-    dtype and the product is cast to float32."""
-    h = L.rms_norm(x, p["ln"])[:, 0]
-    xi, z = (h @ p["in_proj"].to(h.dtype)).chunk(2, dim=-1)
-    xi = _conv_step(conv, xi, p["conv_w"].to(h.dtype))
+    dtype and the product is cast to float32. On DTensors the channels
+    lie as the cache's conv and ssm states do (``Rules.cache_specs``),
+    and the states update on each rank's own shards."""
+    h = pin_layout(L.rms_norm(x, p["ln"]))[:, 0]
+    xi, z = pin_layout(h @ p["in_proj"].to(h.dtype)).chunk(2, dim=-1)
+    xi, z = pin_layout(xi, 1), pin_layout(z, 1)
+    w = pin_layout(p["conv_w"].to(h.dtype), 1, rows=False)
+    xi = on_shards(_conv_step, conv, xi, w, like=xi)
     dt_rank = p["dt_proj"].shape[0]
     N = p["A_log"].shape[1]
-    dt, Bc, Cc = (xi @ p["x_proj"].to(h.dtype)).split([dt_rank, N, N], -1)
-    dt = L.softplus(dt @ p["dt_proj"].to(h.dtype))
-    A = -torch.exp(p["A_log"].to(torch.float32))
-    dA = torch.exp(dt.to(torch.float32)[..., None] * A)
-    dBx = (dt * xi).to(torch.float32)[..., None] \
-        * Bc.to(torch.float32)[:, None, :]
-    ssm.copy_(ssm * dA + dBx)
-    y = torch.einsum("bin,bn->bi", ssm, Cc.to(torch.float32)).to(h.dtype)
-    y = y + xi * p["D_skip"].to(h.dtype)
+    dt, Bc, Cc = pin_layout(xi @ p["x_proj"].to(h.dtype)).split(
+        [dt_rank, N, N], -1)
+    dt = L.softplus(pin_layout(dt @ p["dt_proj"].to(h.dtype), 1))
+    A = pin_layout(-torch.exp(p["A_log"].to(torch.float32)), 0, rows=False)
+    D = pin_layout(p["D_skip"].to(h.dtype), 0, rows=False)
+
+    def update(ssm, dt, xi, Bc, Cc, A, D):
+        dA = torch.exp(dt.to(torch.float32)[..., None] * A)
+        dBx = (dt * xi).to(torch.float32)[..., None] \
+            * Bc.to(torch.float32)[:, None, :]
+        ssm.copy_(ssm * dA + dBx)
+        y = torch.einsum("bin,bn->bi", ssm, Cc.to(torch.float32))
+        return y.to(xi.dtype) + xi * D
+    y = on_shards(update, ssm, dt, xi, Bc, Cc, A, D, like=xi)
     y = y * F.silu(z)
-    return x + (y @ p["out_proj"].to(h.dtype))[:, None]
+    return x + pin_layout(y @ p["out_proj"].to(h.dtype))[:, None]
 
 
 def _mamba2_decode(p: dict, x: torch.Tensor, conv: torch.Tensor,
                    ssm: torch.Tensor) -> torch.Tensor:
-    """One Mamba-2 step; ``dt`` through softplus in float32."""
+    """One Mamba-2 step; ``dt`` through softplus in float32. On DTensors
+    as ``_mamba1_decode`` (the conv state's channels, the ssm state's
+    heads)."""
     B = x.shape[0]
-    h = L.rms_norm(x, p["ln"])[:, 0]
+    h = pin_layout(L.rms_norm(x, p["ln"]))[:, 0]
     Di = p["norm_scale"].shape[0]
     H = p["A_log"].shape[0]
     P = Di // H
     N = (p["in_proj"].shape[1] - 2 * Di - H) // 2
-    z, xbc, dt = (h @ p["in_proj"].to(h.dtype)).split([Di, Di + 2 * N, H], -1)
-    xbc = _conv_step(conv, xbc, p["conv_w"].to(h.dtype))
+    z, xbc, dt = pin_layout(h @ p["in_proj"].to(h.dtype)).split(
+        [Di, Di + 2 * N, H], -1)
+    xbc = pin_layout(xbc, 1)
+    w = pin_layout(p["conv_w"].to(h.dtype), 1, rows=False)
+    xbc = pin_layout(on_shards(_conv_step, conv, xbc, w,
+                               like=xbc))
     xi, Bc, Cc = xbc.split([Di, N, N], -1)
-    dt = L.softplus(dt.to(torch.float32))                     # (B,H)
-    A = -torch.exp(p["A_log"].to(torch.float32))
-    dA = torch.exp(dt * A)                                    # (B,H)
-    xh = xi.reshape(B, H, P).to(torch.float32)
-    dBx = dt[..., None, None] * Bc.to(torch.float32)[:, None, :, None] \
-        * xh[:, :, None, :]                                   # (B,H,N,P)
-    ssm.copy_(ssm * dA[..., None, None] + dBx)
-    y = torch.einsum("bhnp,bn->bhp", ssm, Cc.to(torch.float32))
-    y = y + xh * p["D_skip"].to(torch.float32)[None, :, None]
-    y = y.reshape(B, Di).to(h.dtype)
-    y = L.rms_norm(y * F.silu(z), p["norm_scale"])
-    return x + (y @ p["out_proj"].to(h.dtype))[:, None]
+    dt = pin_layout(L.softplus(dt.to(torch.float32)), 1)      # (B,H)
+    A = pin_layout(-torch.exp(p["A_log"].to(torch.float32)), 0, rows=False)
+    D = pin_layout(p["D_skip"].to(torch.float32), 0, rows=False)
+    xh = pin_layout(xi.reshape(B, H, P).to(torch.float32), 1)
+
+    def update(ssm, dt, xh, Bc, Cc, A, D):
+        dA = torch.exp(dt * A)                                # (B,H)
+        dBx = dt[..., None, None] * Bc.to(torch.float32)[:, None, :, None] \
+            * xh[:, :, None, :]                               # (B,H,N,P)
+        ssm.copy_(ssm * dA[..., None, None] + dBx)
+        y = torch.einsum("bhnp,bn->bhp", ssm, Cc.to(torch.float32))
+        return y + xh * D[None, :, None]
+    y = on_shards(update, ssm, dt, xh, Bc, Cc, A, D, like=xh)
+    y = pin_layout(y.reshape(B, Di).to(h.dtype))
+    y = L.rms_norm(y * F.silu(z), pin_layout(p["norm_scale"], rows=False))
+    return x + pin_layout(y @ p["out_proj"].to(h.dtype))[:, None]
 
 
 # -------------------------------------------------------------- serve step
@@ -201,7 +239,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
     fam = cfg.family
     if fam not in A.FAMILIES:
         raise ValueError(fam)
-    pos = torch.as_tensor(pos, device=tokens.device)
+    pos = torch.as_tensor(pos, device=tokens.device).long()
     x = A.embed(params, cfg, tokens)
     layers = A._unstack(params["layers"], cfg.n_layers)
     if fam in ("dense", "moe", "vlm"):

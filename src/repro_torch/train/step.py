@@ -36,7 +36,8 @@ from repro_torch import device as devmod
 from repro_torch.dist import lcmp_collectives as lc
 from repro_torch.dist.lcmp_collectives import PodAxis, PodGroup, tree_flatten
 from repro_torch.dist.mesh_rules import (check_mesh_device, is_dtensor,
-                                         make_rules, map_with_path, placements)
+                                         make_rules, map_with_path,
+                                         on_shards, pin_layout, placements)
 from repro_torch.models.arch import ArchConfig, forward, init_params
 from repro_torch.serve.decode import decode_step
 from repro_torch.train.optim import (AdamWConfig, AdamWState, adamw_init,
@@ -53,17 +54,55 @@ class TrainConfig:
     pod_axis: Optional[Union[PodAxis, PodGroup]] = None
 
 
+def _token_nll(logits, labels):
+    """Each token's negative log-likelihood, 0 where ``labels`` < 0."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    return torch.where(labels >= 0, lse - gold, 0.0)
+
+
+def _sharded_token_nll(logits, labels):
+    """``_token_nll`` of DTensor logits whose vocab stays sharded over
+    the mesh's ``model`` dim (where it divides): the log-sum-exp from the
+    shards' maxima and sums, and the gold logit from the one shard that
+    holds it, summed over ``model``. Each rank reads its rows only, and
+    no rank holds the whole vocab (DTensor's own gather over a sharded
+    dim fails, and its backward would build the whole logits' zeros on
+    every rank)."""
+    from torch.distributed.tensor import Partial, Shard
+    logits = pin_layout(logits, 2)
+    labels = pin_layout(labels)
+    mesh = logits.device_mesh
+    # the reductions over the vocab shards replicated over "model", so the
+    # backward hands every rank the whole rows' gradient to scale its
+    # shard by (DTensor would otherwise gather the shards instead)
+    m = pin_layout(logits.detach().amax(-1, keepdim=True))
+    lse = (m + pin_layout((logits - m).exp().sum(-1, keepdim=True)).log())
+    lse = lse[..., 0]
+    model = (mesh.mesh_dim_names.index("model")
+             if "model" in mesh.mesh_dim_names else None)
+    split = model is not None and logits.placements[model] == Shard(2)
+    place = list(labels.placements)
+    if split:
+        place[model] = Partial()
+
+    def gold(lg, lb):
+        v = lg.shape[-1]
+        idx = lb.clamp(min=0) - (mesh.get_local_rank(model) * v if split
+                                 else 0)
+        mine = (idx >= 0) & (idx < v)
+        g = lg.gather(-1, idx.clamp(0, v - 1)[..., None])[..., 0]
+        return torch.where(mine, g, 0.0)
+    g = pin_layout(on_shards(gold, logits, labels, placements=place))
+    return torch.where(labels >= 0, lse - g, 0.0)
+
+
 def loss_fn(params, cfg: ArchConfig, tokens, labels, extra=None):
     """Mean next-token negative log-likelihood over labels >= 0."""
     logits = forward(params, cfg, tokens, extra=extra)
-    if is_dtensor(logits):
-        # DTensor's gather over a vocab-sharded dim fails (MaskPartial):
-        # replicate the vocab dim, keep the rows as the labels have them
-        logits = logits.redistribute(labels.device_mesh, labels.placements)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (_sharded_token_nll if is_dtensor(logits) else _token_nll)(
+        logits, labels)
     mask = labels >= 0
-    nll = torch.where(mask, lse - gold, 0.0)
     return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
@@ -229,9 +268,10 @@ class ShardedStep:
     with no communication). The forward and backward run on DTensors
     under ``implicit_replication`` (the forward's constant tensors, rope
     tables and masks, are plain tensors and count as replicated), and
-    DTensor's sharding propagation inserts the collectives. One place
-    redistributes by hand because DTensor has no sharding rule for it:
-    ``loss_fn`` replicates the logits' vocab dim before its gather.
+    DTensor's sharding propagation inserts the collectives. The model
+    pins some activations to plain layouts (``mesh_rules.pin_layout``)
+    where DTensor's rules would fail, and ``loss_fn`` takes the
+    cross-entropy over the vocab shards (``_sharded_token_nll``).
     Each microbatch's gradients are redistributed to their parameters'
     placements (they may come back ``Partial``, or sharded on another
     mesh dim) before they are summed, and AdamW updates every rank's

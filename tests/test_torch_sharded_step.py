@@ -16,8 +16,11 @@ the parameters' update against the one-device update. Then
 ``launch.train`` with ``--data 2 --model 2`` resumes the sharded step's
 checkpoint in the same group and runs two steps in two microbatches,
 printing the one-device run's lines and ending in its state, and a mesh
-that does not match the world size raises. The group is spawned once
-for the module.
+that does not match the world size raises. The same holds for one step
+of the ssm, hybrid, sliding-window and moe families through the dry
+run's train cell, leaf by leaf, and one decode step of a dense and a
+hybrid model through its decode cell writes the caches the one-device
+step writes. The group is spawned once for the module.
 """
 import json
 import os
@@ -238,3 +241,84 @@ def test_launcher_refuses_a_mesh_of_another_size(pool):
     for _, err, _, _ in out:
         assert err is not None and err.startswith("ValueError")
         assert "WORLD_SIZE = 2" in err and "got 4" in err
+
+
+
+def leaf_gaps(got: list, want: list, before: list) -> tuple:
+    """Each leaf's relative L2 gap of two states as ``assert_state_close``
+    takes them: the largest over ``mu`` and ``nu``, and the largest over
+    the update."""
+    n = len(before)
+    return (max(rel_gap([a], [b]) for a, b in zip(got[n:], want[n:])),
+            max(rel_gap([a - p], [b - p])
+                for a, b, p in zip(got[:n], want[:n], before)))
+
+
+# The model's code under DTensor beyond the dense step: the mamba-1 scan
+# and its causal conv (falcon-mamba), the SSD core and the shared
+# attention block (zamba2), the sliding-window blocks (gemma2 at 96
+# tokens, past twice its window of 32) and the moe dispatch (mixtral),
+# run on local shards with their gradients placed back where the rules
+# replicate an input. Each family's step runs through the dry run's
+# train cell on the 2 x 2 mesh against the one-device step, in float32
+# activations (``f32_smoke``). Besides the dense step's contract, every
+# leaf's moments must be within LEAF_MOMENT_GAP and its update within
+# LEAF_UPDATE_GAP (measured, leaf by leaf: moments at most 5.7e-6,
+# updates at most 2.7e-3, from a few elements whose gradient is near
+# 0): a gradient leaf that misses a shard's part is far outside both,
+# even where the whole state's gap hides it.
+LEAF_MOMENT_GAP = 1e-4
+LEAF_UPDATE_GAP = 1e-2
+
+
+@pytest.mark.parametrize("arch,seq", [("falcon_mamba_7b", 32),
+                                      ("zamba2_1p2b", 32),
+                                      ("gemma2_9b", 96),
+                                      ("mixtral_8x7b", 32)])
+def test_family_step_matches_one_device(pool, arch, seq):
+    cfg = w.f32_smoke(arch)
+    params, opt = init_train_state(cfg, 0, device="cpu")
+    before = [x.detach().numpy().copy() for x in tree_flatten(params)[0]]
+    params, opt, m = make_train_step(cfg)(params, opt, batch_at(
+        cfg, 0, batch=4, seq=seq, device="cpu"))
+    got = pool.run(w.family_step, arch, 2, 2, 4, seq)
+    assert np.isfinite(float(m["loss"]))
+    for r in got:
+        assert r["loss"] == got[0]["loss"]
+    np.testing.assert_allclose(got[0]["loss"], float(m["loss"]), rtol=2e-3)
+    np.testing.assert_allclose(got[0]["grad_norm"], float(m["grad_norm"]),
+                               rtol=2e-3)
+    want = w.numpy_state(params, opt)
+    assert_state_close(got[0]["whole"], want, before)
+    moments, update = leaf_gaps(got[0]["whole"], want, before)
+    assert moments < LEAF_MOMENT_GAP and update < LEAF_UPDATE_GAP
+
+
+# Decode on the mesh writes the caches on local shards at ``pos``: every
+# element the one-device step leaves as it was must come back bit for
+# bit, and what it writes (the new key and value rows, the mamba states)
+# within DECODE_GAP in relative L2, as must the logits (measured in
+# float32: at most 5.3e-7).
+DECODE_GAP = 1e-5
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "zamba2_1p2b"])
+def test_decode_step_matches_one_device(pool, arch):
+    from repro_torch.models.arch import init_params
+    from repro_torch.serve.decode import decode_step
+    cfg = w.f32_smoke(arch)
+    ins = w.decode_inputs(cfg, 4, 64, 3)
+    before = [x.numpy().copy() for x in tree_flatten(ins["cache"])[0]]
+    logits, cache = decode_step(init_params(cfg, 0, device="cpu"), cfg,
+                                ins["cache"], ins["tokens"], ins["pos"])
+    want = [logits.numpy()] + [x.numpy() for x in tree_flatten(cache)[0]]
+    got = pool.run(w.sharded_decode, arch, 2, 2, 4, 64, 3)[0]
+    assert len(got) == len(want)
+    gaps = [rel_gap(got[:1], want[:1])]
+    for g, x, b in zip(got[1:], want[1:], before):
+        assert g.shape == x.shape
+        kept = x == b
+        assert np.array_equal(g[kept], b[kept])
+        assert (~kept).any()
+        gaps.append(rel_gap([g[~kept]], [x[~kept]]))
+    assert max(gaps) < DECODE_GAP

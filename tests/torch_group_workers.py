@@ -255,3 +255,81 @@ def launch(argv: list):
         err = f"{type(e).__name__}: {e}"
     return (buf.getvalue(), err, losses,
             state if dist.get_rank() == 0 else None)
+
+
+def f32_smoke(arch: str):
+    """``arch``'s smoke configuration with float32 activations: the
+    mesh's step and the one-device step then differ only by summation
+    order, far below bf16's rounding (which leaves a zamba2 step's
+    gradient norm 0.3% apart on either side)."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch, smoke=True),
+                               act_dtype="float32")
+
+
+def family_step(arch: str, data: int, model: int, batch: int, seq: int):
+    """One ``f32_smoke`` train step of ``arch`` from seed 0 through the
+    dry run's train cell (``ShardedStep`` on a (data, model) mesh of the
+    default group) on real tensors: its loss and norm, and on rank 0 the
+    whole state after it."""
+    import torch.distributed as dist
+    from repro_torch.data.synth import batch_at
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models.arch import init_params
+    cfg = f32_smoke(arch)
+    mesh = make_host_mesh(data, model, device_type="cpu")
+    fn, _ = dryrun.build_cell(
+        cfg, ShapeCell("step", "train", seq, batch), mesh,
+        params=init_params(cfg, 0, device="cpu"),
+        inputs=batch_at(cfg, 0, batch=batch, seq=seq, device="cpu"))
+    params, opt, m = fn()
+    whole = numpy_state(params, opt)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                whole=whole if dist.get_rank() == 0 else None)
+
+
+def decode_inputs(cfg, batch: int, max_seq: int, seed: int) -> dict:
+    """Decode inputs on the CPU from ``seed``: tokens (batch, 1), pos =
+    max_seq // 2 and the family's cache filled with normal values."""
+    import numpy as np
+    import torch
+    from repro_torch.dist.mesh_rules import map_with_path
+    from repro_torch.serve.decode import init_cache
+    rng = np.random.default_rng(seed)
+    cache = map_with_path(
+        init_cache(cfg, batch, max_seq, device="cpu"),
+        lambda path, t: torch.from_numpy(rng.standard_normal(
+            tuple(t.shape)).astype(np.float32)).to(t.dtype))
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, 1)).astype(np.int32))
+    return dict(tokens=tokens, pos=torch.tensor(max_seq // 2,
+                                                dtype=torch.int32),
+                cache=cache)
+
+
+def sharded_decode(arch: str, data: int, model: int, batch: int,
+                   max_seq: int, seed: int):
+    """One ``decode_step`` of ``arch`` (``f32_smoke``, parameters from
+    seed 0) through the dry run's decode cell on a (data, model) mesh of
+    the default group, on ``decode_inputs``: on rank 0 the logits and
+    the cache after it, whole, in leaf order."""
+    import torch.distributed as dist
+    from repro_torch.dist.lcmp_collectives import tree_flatten
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models.arch import init_params
+    cfg = f32_smoke(arch)
+    mesh = make_host_mesh(data, model, device_type="cpu")
+    fn, _ = dryrun.build_cell(
+        cfg, ShapeCell("step", "decode", max_seq, batch), mesh,
+        params=init_params(cfg, 0, device="cpu"),
+        inputs=decode_inputs(cfg, batch, max_seq, seed))
+    logits, cache = fn()
+    out = [logits.full_tensor()] + [x.full_tensor()
+                                    for x in tree_flatten(cache)[0]]
+    out = [x.numpy() for x in out]
+    return out if dist.get_rank() == 0 else None
