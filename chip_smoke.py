@@ -10,7 +10,19 @@ the script exits non-zero and prints no result line. Phases:
 2. build: the three CUDA sources compiled for sm_90a from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel), with
    ptxas registers and spills;
-3. kernel_check: each kernel entry against its plain PyTorch version
+3. lint: the port's reprolint (``python -m repro_torch.analysis
+   --format=json``) over the checkout must be clean (exit 0), its file
+   and suppressed counts printed; then its DEV family held against the
+   card (``examples/torch_decode_sync.py``'s check): ``decode_step`` of
+   qwen3-4b (4 layers) and falcon-mamba-7b (2 layers) at full width in
+   bf16, batch 4, runs steps 1-8 under
+   ``torch.cuda.set_sync_debug_mode("error")`` after a first step, its
+   logits finite; a step that synchronizes fails the phase and names its
+   lines of the port beside whether the static lint names them too (the
+   engines' steps are held this way in phase sanitize); and rope's
+   ``theta``, gemma's embedding scale and an int position, now filled on
+   the card, equal the host-built tensors bit for bit;
+4. kernel_check: each kernel entry against its plain PyTorch version
    on the card, bit for bit, at the main path's shapes (testbed8 and
    wan2000, and geo's 8-hop paths) and at bulk shapes, with CUDA-event
    times, host time per call and byte bounds. The fused ``monitor_tick``
@@ -25,7 +37,7 @@ the script exits non-zero and prints no result line. Phases:
    per pair (the sweep's ``pair_policy``) on the merged world of the
    fig5 group and at the bulk shape; a ``lcmp_decide`` call with 9
    candidates must raise on the card;
-4. run: the runs of ``ALONE`` through ``run_experiment`` (fig5's
+5. run: the runs of ``ALONE`` through ``run_experiment`` (fig5's
    testbed8 lcmp, ecmp, wcmp and matchrdma, fig10's CC laws,
    fig_multipath's fluid rows but the re-decision cells of phase sweep):
    FCT slowdown and completion against ``REFERENCE`` within the bands,
@@ -34,7 +46,7 @@ the script exits non-zero and prints no result line. Phases:
    ``decide`` launch per trip step and re-decision epoch, no standalone
    entry and no plain version; the other runs of ``RUNS`` are cells of
    phase sweep's groups;
-5. packet: the runs of ``PACKET_ALONE`` (the packet engine on
+6. packet: the runs of ``PACKET_ALONE`` (the packet engine on
    fidelity_bench's testbed8 lcmp cell, the full-size wan2000, the
    failover with go-back-N, fig_multipath's packet rows with the flowlet plane
    armed) the same way against ``PACKET_REFERENCE``: one
@@ -42,11 +54,11 @@ the script exits non-zero and prints no result line. Phases:
    ``decide`` per trip step and per slot while the flowlet plane is
    armed; hop queues non-negative and inside the buffer (its testbed8
    ecmp cell runs in phase packet_sweep's grid);
-6. profile: where a testbed8 lcmp fluid step's and a packet slot's time
+7. profile: where a testbed8 lcmp fluid step's and a packet slot's time
    goes (torch.profiler): wall and device-busy time per step, idle
    share, kernels per step, the two fused kernels' and ``index_add_``'s
    device time;
-7. sweep: each group of ``SWEEPS`` (fig5's whole 15-cell grid, the
+8. sweep: each group of ``SWEEPS`` (fig5's whole 15-cell grid, the
    wan2000 pair, the failover pair, the re-decision rows) through
    ``run_sweep`` as one merged world: one ``monitor_tick`` and one
    ``route_arrivals`` launch a step for the whole group, ``decide`` per
@@ -56,7 +68,7 @@ the script exits non-zero and prints no result line. Phases:
    beside phase run's times for those cells, peak memory; then the
    profile of a merged fig5 step; every run of ``RUNS`` driven alone or
    as a cell, and the reference's ``ORDERINGS`` on their numbers;
-8. packet_sweep: fidelity_bench's grid (2 scenarios x 3 policies x both
+9. packet_sweep: fidelity_bench's grid (2 scenarios x 3 policies x both
    engines, 12 cells in 4 groups) through one ``run_sweep`` at its
    default and quick scales: the launch counts per group, each cell
    against its reference number (``PACKET_REFERENCE``,
@@ -66,7 +78,7 @@ the script exits non-zero and prints no result line. Phases:
    quick scale only, as in the reference); LCMP below ECMP on testbed8
    under both engines; every run of ``PACKET_RUNS`` driven alone or as a
    cell, and the reference's ``PACKET_ORDERINGS`` on their numbers;
-9. sanitize: the physics-invariant sanitizer at tests/test_sanitize.py's
+10. sanitize: the physics-invariant sanitizer at tests/test_sanitize.py's
    spec (testbed8, load 0.7, 40 ms) on both engines: a checked run's
    final state equals a checks-off run's bit for bit; neither makes a
    host sync inside its step loop after the set-up step 0
@@ -77,7 +89,7 @@ the script exits non-zero and prints no result line. Phases:
    and ``pfc_lossless`` through a patched ``pfc_gate`` (packet,
    ``pairs="all"``, a 2e5-byte buffer); each seeded bug corrupts every
    step from step 0, so its run stops at ``MUTATION_STEPS``;
-10. cosim: fig_training's design point (the degraded wan2000 at load
+11. cosim: fig_training's design point (the degraded wan2000 at load
    0.7, bg_load 0.15, seed 9, 400 ms, qwen3-4b and gemma2-9b x ecmp,
    wcmp, fatpaths, matchrdma, lcmp x both engines: 20 cells, two merged
    groups) through ``run_sweep``: one ``monitor_tick`` and one
@@ -86,7 +98,7 @@ the script exits non-zero and prints no result line. Phases:
    10%; infinite in both or neither), iterations done equal, completions
    within 1% of offered; the LCMP ordering flag of each (engine, model)
    equal to the reference's;
-11. switch: the switch object model (``core.switchd``: 48 ports, 8
+12. switch: the switch object model (``core.switchd``: 48 ports, 8
    candidates, a 65,536-slot flow cache) over 200 ticks of random queues
    and 4,096 arrivals (half established), a port death at tick 100 and
    GC every 50 ticks, through the standalone ``cong_update`` and
@@ -94,19 +106,19 @@ the script exits non-zero and prints no result line. Phases:
    whole cache equal to the same run through the plain versions on the
    card, bit for bit; a colliding batch's cache equal to the CPU's;
    more than 8 candidates refused;
-12. device_vs_cpu: 50 ms of testbed8 lcmp, testbed8_failover lcmp (a
+13. device_vs_cpu: 50 ms of testbed8 lcmp, testbed8_failover lcmp (a
    trip at 25 ms), a 3-cell sweep group, and the packet engine's testbed8 lcmp
    and failover runs on the card and on the CPU (plain versions) must
    route the same flows the same way;
-13. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
+14. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
    cut to 4 layers, one 4096-token sequence per pod, 2 pods on the card):
    3 steps with the int8 wire, then 1 f32-wire step from the state after
    step 2; the int8 gradient against the exact pod mean block by block,
    the route binding and wire bytes, the qsr launches, the two paths'
    parameters against AdamW's bound; time split, tokens/s, peak memory;
-14. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
+15. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
    and on the CPU from the same weights and batch;
-15. dist: the pod reduce across processes, 2 ranks on the one card over
+16. dist: the pod reduce across processes, 2 ranks on the one card over
    Gloo, each one pod (``PodGroup``): each rank's own 1.18 G-element
    vector reduced over the group with the int8 and f32 wires, every
    rank's result against the one-process ``PodAxis`` reduce on the card
@@ -117,7 +129,7 @@ the script exits non-zero and prints no result line. Phases:
    of each wire leg, each rank's qsr launches and peak memory (the
    FSDP x TP step on a DeviceMesh is not run on the card: DTensor's
    collectives over Gloo crash for ranks sharing one card);
-16. families: every configuration at its published widths in bf16,
+17. families: every configuration at its published widths in bf16,
    depth cut where ``FAMILY_LAYERS`` says (qwen3-4b, gemma2-9b, glm4-9b,
    mistral-nemo-12b, mixtral-8x7b, dbrx-132b cut; falcon-mamba-7b,
    zamba2-1.2b, whisper-medium and internvl2-2b at full depth), each on
@@ -139,11 +151,11 @@ the script exits non-zero and prints no result line. Phases:
    and its non-finite gradient leaves the reference's
    (``HYBRID_NONFINITE``: the reference's ``mamba2_ssd`` overflow,
    reproduced);
-17. serve: ``launch.serve.prefill_then_decode`` at the reference's
+18. serve: ``launch.serve.prefill_then_decode`` at the reference's
    defaults (batch 4, prompt 32, gen 32) for qwen3-4b, gemma2-9b,
    mixtral-8x7b, falcon-mamba-7b, zamba2-1.2b and internvl2-2b:
    tokens/s, ms per decode step, peak memory;
-18. launch_train: the training launcher's loop at full width on one
+19. launch_train: the training launcher's loop at full width on one
    4096-token sequence, 3 steps of gemma2-9b (4 layers), mixtral-8x7b
    (1 layer), falcon-mamba-7b (1 layer) and whisper-medium (full
    depth, its frames in the batch): finite losses, step time, tokens/s,
@@ -152,7 +164,7 @@ the script exits non-zero and prints no result line. Phases:
    step 2 to 4, the resumed step-3 loss, a SIGTERM's emergency
    checkpoint (zamba2 is not trained: its gradient is NaN, as the
    reference's);
-19. dryrun: the multi-pod dry run (``launch.dryrun``) on fake CUDA
+20. dryrun: the multi-pod dry run (``launch.dryrun``) on fake CUDA
    tensors over fake process groups: (a) qwen3-4b train_4k, prefill_32k
    and decode_32k and falcon-mamba-7b long_500k on the (16, 16) mesh and
    qwen3-4b train_4k on (2, 16, 16), each through the CLI in a
@@ -167,7 +179,7 @@ the script exits non-zero and prints no result line. Phases:
    within ``DRYRUN_MEM_BAND`` of the real step's
    ``max_memory_allocated`` increase, the step time and the share of
    989 TFLOP/s it reaches;
-then the ``kernels`` summary line and the result line. Phase 3 also
+then the ``kernels`` summary line and the result line. Phase 4 also
 holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
 for bit, at 1024, 2^16 and 2^24 elements and at the train phase's two
 wire-leg sizes, and times the standalone ``cong_update`` and
@@ -219,7 +231,7 @@ WAN_DEG = dict(topology="wan2000:dcs=24,segs=2,chords=12,deg_ms=133,"
                "deg_factor=0.25", pairs="main", load=0.5, bg_load=0.15, seed=9,
                cap_scale=0.0625, duration_us=400_000)
 EPOCH = dict(redecide_period_us=10_000)      # fig_multipath's re-decision
-# every run of phase 4: name -> ExpSpec fields
+# every run of phase 5: name -> ExpSpec fields
 RUNS = {
     "testbed8/lcmp": dict(TESTBED8, policy="lcmp"),
     "testbed8/ecmp": dict(TESTBED8, policy="ecmp"),
@@ -690,6 +702,77 @@ def phase_build() -> dict:
     out = {"phase": "build", "seconds": time.perf_counter() - t0,
            "arch": "sm_90a", "kernels": kernels}
     emit(out)
+    return out
+
+
+def filled_scalars_equal(dev) -> bool:
+    """rope's theta, gemma's embedding scale and an int position filled
+    on the card (``torch.full``) against the host-built tensors."""
+    from repro_torch import configs
+    vals = set()
+    for c in configs.all_configs().values():
+        vals |= {(float(c.rope_theta), torch.float32),
+                 (c.d_model ** 0.5, c.adt), (7, torch.long)}
+    return all(torch.equal(torch.full((), v, dtype=dt, device=dev)
+                           .reshape(1).view(torch.uint8),
+                           torch.tensor(v, dtype=dt, device=dev)
+                           .reshape(1).view(torch.uint8))
+               for v, dt in vals)
+
+
+def phase_lint(dev) -> dict:
+    """Phase lint (see the module docstring); the decode check is
+    ``examples/torch_decode_sync.py``'s. The CLI runs in a process of its
+    own beside the decode check, and is stopped if it outlives it by
+    more than its timeout."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.analysis",
+                             "--format=json"], cwd=HERE, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        # every DEV line the lint sees, exempted or not, to name a sync by
+        from repro_torch.analysis import run_checks
+        rep = run_checks(HERE, checks=["syncs"])
+        dev_lines = {(f.path, f.line) for f in rep.findings + rep.suppressed}
+        sys.path.insert(0, os.path.join(HERE, "examples"))
+        from torch_decode_sync import check as decode_sync
+        decode = decode_sync(HERE)["runs"]
+        scalars_equal = filled_scalars_equal(dev)
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lint_s = time.perf_counter() - t0
+    try:
+        report = json.loads(stdout)
+    except json.JSONDecodeError:
+        report = {"ok": False, "findings": [], "stderr": stderr[-2000:]}
+    for r in decode:
+        if r["synced"] is not None:
+            r["synced"]["named_by_lint"] = [
+                f for f in r["synced"]["frames"] if tuple(f[:2]) in dev_lines]
+    out = {"phase": "lint", "exit": proc.returncode, "ok": report.get("ok"),
+           "files": report.get("files"), "suppressed": report.get("suppressed"),
+           "findings": report.get("findings"), "lint_wall_s": lint_s,
+           "dev_lines": sorted(dev_lines), "decode": decode,
+           "engines": "phase sanitize: fluid and packet steps 1.. under "
+                      "set_sync_debug_mode('error')",
+           "filled_scalars_equal": scalars_equal}
+    emit(out)
+    require(proc.returncode == 0 and out["ok"] is True,
+            f"lint: the port's reprolint is clean ({out['findings']})")
+    require(out["files"] > 80, "lint: over the port's files")
+    for r in decode:
+        require(r["synced"] is None,
+                f"lint: {r['config']} decode steps 1-{r['steps']} make no "
+                f"host sync ({r['synced']})")
+        require(r["finite"] and r["shape"][:2] == [r["batch"], 1],
+                f"lint: {r['config']} decode logits finite, (batch, 1, V)")
+    require(out["filled_scalars_equal"],
+            "lint: filled scalars equal the host-built ones bit for bit")
     return out
 
 
@@ -3605,6 +3688,7 @@ def main() -> int:
 
     info = phase_device()
     phase_build()
+    phase_lint(dev)
     checks = phase_kernel_check(dev, main_path_shapes(dev))
     runs = phase_runs(dev)
     packet_runs = phase_packet(dev)

@@ -161,6 +161,9 @@ def _need(x: torch.Tensor, name: str, dtype, shape, dev: torch.device) -> None:
 def _within(x: torch.Tensor, name: str, lo: int, hi: int) -> None:
     """Index tables must stay inside what they index (one host sync, at
     set-up): the kernel reads through them unchecked."""
+    # read when a launcher is built (step 0 or a rebind) and for pairs
+    # other than the run's own, never on a steady step
+    # reprolint: ignore[DEV001] set-up read, once per launcher
     if x.numel() and not (lo <= int(x.min()) and int(x.max()) < hi):
         raise ValueError(f"route_arrivals: {name} holds indices outside "
                          f"[{lo}, {hi})")
@@ -245,6 +248,7 @@ class RouteArrivals:
                     f"ar.pair_policy an int32 tensor of shape ({NPAIR},) on "
                     f"{dev}, got {None if codes is None else codes.dtype}")
             swept = {POLICY_CODES[p] for p in sweep_policies}
+            # reprolint: ignore[DEV001,DEV004] set-up read, once per launcher
             got = set(torch.unique(codes).tolist())
             if not got <= swept:
                 raise ValueError(f"route_arrivals: pair_policy holds law codes "

@@ -304,8 +304,8 @@ def embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
         else table[tokens]
     x = x.to(cfg.adt)
     if cfg.family == "dense" and cfg.name.startswith("gemma"):
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.adt,
-                             device=x.device)
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=cfg.adt,
+                           device=x.device)
     return x
 
 

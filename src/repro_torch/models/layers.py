@@ -37,8 +37,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
     d = x.shape[-1]
     half = d // 2
     expo = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), expo)
+    # theta filled on the card (a tensor built from the host would copy)
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=x.device), expo)
     ang = positions[..., None].to(torch.float32) * freq       # (..., S, half)
     cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]

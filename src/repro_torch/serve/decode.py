@@ -239,7 +239,9 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
     fam = cfg.family
     if fam not in A.FAMILIES:
         raise ValueError(fam)
-    pos = torch.as_tensor(pos, device=tokens.device).long()
+    # an int position is filled on the card, not copied from the host
+    pos = (pos.to(tokens.device, torch.long) if isinstance(pos, torch.Tensor)
+           else torch.full((), pos, dtype=torch.long, device=tokens.device))
     x = A.embed(params, cfg, tokens)
     layers = A._unstack(params["layers"], cfg.n_layers)
     if fam in ("dense", "moe", "vlm"):
