@@ -68,7 +68,17 @@ the script exits non-zero and prints no result line. Phases:
    beside phase run's times for those cells, peak memory; then the
    profile of a merged fig5 step; every run of ``RUNS`` driven alone or
    as a cell, and the reference's ``ORDERINGS`` on their numbers;
-9. packet_sweep: fidelity_bench's grid (2 scenarios x 3 policies x both
+9. sweep_mesh: ``run_sweep(use_mesh=True)``'s runner
+   (``sweep.run_sharded``) on ``[cuda:0, cuda:0]``: the groups of
+   ``MESH_GROUPS`` (fig5 split 8 + 7, staleness_epoch 2 + 1), each shard
+   a merged world in one of two worker processes sharing the card; every
+   cell's final state equal to phase sweep's merged run of it bit for
+   bit; the workers' launches, added to this process's counts, one
+   ``monitor_tick`` and one ``route_arrivals`` a step per shard and each
+   shard's own ``decide``s; a plain version raises in a worker; each
+   worker's start-up and peak memory, the sharded wall beside the
+   merged one;
+10. packet_sweep: fidelity_bench's grid (2 scenarios x 3 policies x both
    engines, 12 cells in 4 groups) through one ``run_sweep`` at its
    default and quick scales: the launch counts per group, each cell
    against its reference number (``PACKET_REFERENCE``,
@@ -78,7 +88,7 @@ the script exits non-zero and prints no result line. Phases:
    quick scale only, as in the reference); LCMP below ECMP on testbed8
    under both engines; every run of ``PACKET_RUNS`` driven alone or as a
    cell, and the reference's ``PACKET_ORDERINGS`` on their numbers;
-10. sanitize: the physics-invariant sanitizer at tests/test_sanitize.py's
+11. sanitize: the physics-invariant sanitizer at tests/test_sanitize.py's
    spec (testbed8, load 0.7, 40 ms) on both engines: a checked run's
    final state equals a checks-off run's bit for bit; neither makes a
    host sync inside its step loop after the set-up step 0
@@ -89,7 +99,7 @@ the script exits non-zero and prints no result line. Phases:
    and ``pfc_lossless`` through a patched ``pfc_gate`` (packet,
    ``pairs="all"``, a 2e5-byte buffer); each seeded bug corrupts every
    step from step 0, so its run stops at ``MUTATION_STEPS``;
-11. cosim: fig_training's design point (the degraded wan2000 at load
+12. cosim: fig_training's design point (the degraded wan2000 at load
    0.7, bg_load 0.15, seed 9, 400 ms, qwen3-4b and gemma2-9b x ecmp,
    wcmp, fatpaths, matchrdma, lcmp x both engines: 20 cells, two merged
    groups) through ``run_sweep``: one ``monitor_tick`` and one
@@ -98,7 +108,7 @@ the script exits non-zero and prints no result line. Phases:
    10%; infinite in both or neither), iterations done equal, completions
    within 1% of offered; the LCMP ordering flag of each (engine, model)
    equal to the reference's;
-12. switch: the switch object model (``core.switchd``: 48 ports, 8
+13. switch: the switch object model (``core.switchd``: 48 ports, 8
    candidates, a 65,536-slot flow cache) over 200 ticks of random queues
    and 4,096 arrivals (half established), a port death at tick 100 and
    GC every 50 ticks, through the standalone ``cong_update`` and
@@ -106,19 +116,19 @@ the script exits non-zero and prints no result line. Phases:
    whole cache equal to the same run through the plain versions on the
    card, bit for bit; a colliding batch's cache equal to the CPU's;
    more than 8 candidates refused;
-13. device_vs_cpu: 50 ms of testbed8 lcmp, testbed8_failover lcmp (a
+14. device_vs_cpu: 50 ms of testbed8 lcmp, testbed8_failover lcmp (a
    trip at 25 ms), a 3-cell sweep group, and the packet engine's testbed8 lcmp
    and failover runs on the card and on the CPU (plain versions) must
    route the same flows the same way;
-14. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
+15. train: the multi-pod LCMP train step at qwen3-4b's full width (depth
    cut to 4 layers, one 4096-token sequence per pod, 2 pods on the card):
    3 steps with the int8 wire, then 1 f32-wire step from the state after
    step 2; the int8 gradient against the exact pod mean block by block,
    the route binding and wire bytes, the qsr launches, the two paths'
    parameters against AdamW's bound; time split, tokens/s, peak memory;
-15. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
+16. train_device_vs_cpu: one smoke-size 2-pod int8 step on the card
    and on the CPU from the same weights and batch;
-16. dist: the pod reduce across processes, 2 ranks on the one card over
+17. dist: the pod reduce across processes, 2 ranks on the one card over
    Gloo, each one pod (``PodGroup``): each rank's own 1.18 G-element
    vector reduced over the group with the int8 and f32 wires, every
    rank's result against the one-process ``PodAxis`` reduce on the card
@@ -129,7 +139,7 @@ the script exits non-zero and prints no result line. Phases:
    of each wire leg, each rank's qsr launches and peak memory (the
    FSDP x TP step on a DeviceMesh is not run on the card: DTensor's
    collectives over Gloo crash for ranks sharing one card);
-17. families: every configuration at its published widths in bf16,
+18. families: every configuration at its published widths in bf16,
    depth cut where ``FAMILY_LAYERS`` says (qwen3-4b, gemma2-9b, glm4-9b,
    mistral-nemo-12b, mixtral-8x7b, dbrx-132b cut; falcon-mamba-7b,
    zamba2-1.2b, whisper-medium and internvl2-2b at full depth), each on
@@ -151,11 +161,11 @@ the script exits non-zero and prints no result line. Phases:
    and its non-finite gradient leaves the reference's
    (``HYBRID_NONFINITE``: the reference's ``mamba2_ssd`` overflow,
    reproduced);
-18. serve: ``launch.serve.prefill_then_decode`` at the reference's
+19. serve: ``launch.serve.prefill_then_decode`` at the reference's
    defaults (batch 4, prompt 32, gen 32) for qwen3-4b, gemma2-9b,
    mixtral-8x7b, falcon-mamba-7b, zamba2-1.2b and internvl2-2b:
    tokens/s, ms per decode step, peak memory;
-19. launch_train: the training launcher's loop at full width on one
+20. launch_train: the training launcher's loop at full width on one
    4096-token sequence, 3 steps of gemma2-9b (4 layers), mixtral-8x7b
    (1 layer), falcon-mamba-7b (1 layer) and whisper-medium (full
    depth, its frames in the batch): finite losses, step time, tokens/s,
@@ -164,7 +174,7 @@ the script exits non-zero and prints no result line. Phases:
    step 2 to 4, the resumed step-3 loss, a SIGTERM's emergency
    checkpoint (zamba2 is not trained: its gradient is NaN, as the
    reference's);
-20. dryrun: the multi-pod dry run (``launch.dryrun``) on fake CUDA
+21. dryrun: the multi-pod dry run (``launch.dryrun``) on fake CUDA
    tensors over fake process groups: (a) qwen3-4b train_4k, prefill_32k
    and decode_32k and falcon-mamba-7b long_500k on the (16, 16) mesh and
    qwen3-4b train_4k on (2, 16, 16), each through the CLI in a
@@ -290,6 +300,13 @@ SWEEPS = {
     "staleness_epoch": [dict(STALENESS, policy=p, **EPOCH)
                         for p in ("fatpaths", "lcmp_r", "lcmp")],
 }
+# phase sweep_mesh: these groups of SWEEPS split over MESH_WORKERS worker
+# processes sharing the card, each cell's final state held to phase
+# sweep's merged run of it (the fields of a sweep cell's final view)
+MESH_GROUPS = ("fig5", "staleness_epoch")
+MESH_WORKERS = 2
+SWEEP_FINAL = ("done", "fct_us", "flow_path", "serv_bytes", "c_path",
+               "route_nonce")
 # the JAX package's run_sweep on the sweep cells that no run of RUNS
 # covers (p50, p99, completed, offered), computed on the CPU and pinned by
 # tests/test_torch_sweep_reference.py; the other cells take REFERENCE's
@@ -1826,6 +1843,7 @@ def run_sweep_group(dev, group: str, runs: dict) -> dict:
            "expected_decide": decides, "plain_calls": plain.calls,
            "per_cell": rows}
     emit(out)
+    out["finals"] = [res.final for res in rep.results]     # sweep_mesh's
     require(rep.num_groups == 1, f"sweep {group}: one static group")
     require(counts["monitor_tick"] == cfg.num_steps
             and counts["route_arrivals"] == cfg.num_steps,
@@ -1940,6 +1958,118 @@ def phase_sweep(dev, runs: dict) -> dict:
     del g
     offered_load_probe(dev)
     return groups
+
+
+def forbid_plain() -> None:
+    """Phase sweep_mesh's worker set-up: every plain version that
+    ``kernels.ref`` defines raises, so a worker that runs one fails the
+    phase (``PlainCalls`` counts them in this process)."""
+    from repro_torch.kernels import ref
+
+    def refusing(name):
+        def refuse(*_, **__):
+            raise RuntimeError(f"plain version {name} ran in a sweep worker")
+        return refuse
+    for name, fn in list(vars(ref).items()):
+        if inspect.isfunction(fn) and fn.__module__ == ref.__name__:
+            setattr(ref, name, refusing(name))
+
+
+def same_final(a, b) -> bool:
+    return all(np.array_equal(getattr(a, n), getattr(b, n))
+               for n in SWEEP_FINAL)
+
+
+def start_mesh_workers(dev):
+    """Phase sweep_mesh's ``MESH_WORKERS`` worker processes on ``dev``
+    (``forbid_plain`` set up in each), started before phase sweep so that
+    their start-up (an interpreter, torch and a CUDA context each)
+    overlaps it."""
+    from repro_torch.netsim import sweep
+    return sweep.SweepWorkers([dev] * MESH_WORKERS,
+                              initializer=(forbid_plain, ()))
+
+
+def phase_sweep_mesh(dev, sweeps: dict, workers) -> dict:
+    """``run_sweep(use_mesh=True)`` on one card: each group of
+    ``MESH_GROUPS`` through its runner (``sweep.run_sharded``) on
+    ``workers`` (``start_mesh_workers``), so its cells split into
+    ``MESH_WORKERS`` shards, each a merged world in a worker process of
+    its own. Every cell's final state must equal phase sweep's merged
+    run of the same cell bit for bit (both engines sum per link in
+    float64 on the card, so a cell's numbers do not depend on which
+    cells share its world); where one does not, the merged group is run
+    again here, to tell an engine that does not repeat itself from a
+    split that changes numbers. The workers' launches, added to this
+    process's counts: one ``monitor_tick`` and one ``route_arrivals`` a
+    step per non-empty shard, and each shard's ``expected_decides`` (a
+    shard's configuration keeps only its own cells' laws, so a shard
+    with no re-deciding cell makes no epoch ``decide``); no standalone
+    entry. Each worker's start-up and peak memory, and each group's
+    sharded wall beside phase sweep's merged one."""
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import sweep
+    ops.reset_counts()
+    want, rows, differ, reps = collections.Counter(), {}, [], []
+    for g in MESH_GROUPS:
+        cells = sweep_cells(g)
+        specs = [pexp.ExpSpec(**kw) for _, kw, _ in cells]
+        shards = [s.tolist() for s in np.array_split(
+            np.arange(len(specs)), len(workers.devices)) if len(s)]
+        for shard in shards:
+            _, cfg = sweep.group_config([specs[i] for i in shard])
+            want["monitor_tick"] += cfg.num_steps
+            want["route_arrivals"] += cfg.num_steps
+            want["decide"] += expected_decides(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sweep.run_sharded(specs, workers=workers)
+        wall = time.perf_counter() - t0
+        reps.append(rep)
+        bad = [name for (name, _, _), res, m in
+               zip(cells, rep.results, sweeps[g]["finals"])
+               if not same_final(res.final, m)]
+        rows[g] = {"cells": len(specs), "shards": [len(s) for s in shards],
+                   "group_cells": rep.group_cells, "wall_s": wall,
+                   "merged_wall_s": sweeps[g]["wall_s"], "differ": bad}
+        if bad:     # does the merged run repeat itself on the card?
+            rerun = sweep.run_sweep(specs, device=dev)
+            rows[g]["merged_repeats"] = all(
+                same_final(r.final, m)
+                for r, m in zip(rerun.results, sweeps[g]["finals"]))
+        differ += bad
+    counts = ops.counts()
+    stats = reps[-1].workers            # the workers' totals since start
+    out = {"phase": "sweep_mesh",
+           "devices": [str(d) for d in workers.devices],
+           "groups": rows, "cells": sum(r["cells"] for r in rows.values()),
+           "wall_s": sum(r["wall_s"] for r in rows.values()),
+           "merged_wall_s": sum(r["merged_wall_s"] for r in rows.values()),
+           "startup_s": [w["startup_s"] for w in stats],
+           "startup": "overlapped phase sweep",
+           "workers": stats, "launches": counts,
+           "expected_launches": dict(want),
+           "plain_versions": "raise in the workers (forbid_plain)",
+           "bit_for_bit": not differ, "differ": differ}
+    emit(out)
+    for g, row in rows.items():
+        require(row["group_cells"] == [len(SWEEPS[g])],
+                f"sweep_mesh {g}: group_cells as unsharded")
+    require(len(stats) == MESH_WORKERS
+            and all(w["device"] == str(dev) for w in stats),
+            f"sweep_mesh: {MESH_WORKERS} workers on {dev}")
+    require(all(sum(w["launches"][n] for w in stats) == counts[n]
+                for n in counts), "sweep_mesh: this process's counts are "
+            "the workers' launches")
+    require(not differ, "sweep_mesh: every cell equals phase sweep's merged "
+            f"run bit for bit (differ: {differ})")
+    for name in ("monitor_tick", "route_arrivals", "decide"):
+        require(counts[name] == want[name], f"sweep_mesh: {name} launched "
+                f"{counts[name]} times, {want[name]} expected")
+    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+            "sweep_mesh: the standalone entries are not on the path")
+    return out
 
 
 def fidelity_grid(dev, grid: str, packet_runs: dict) -> dict:
@@ -3612,9 +3742,10 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
     arrivals) and ``decide`` at wan2000's (lcmp, every flow, the
     failover's read), with their launches summed over the runs of
     phases run and packet, the groups of phases sweep, packet_sweep and
-    cosim; the standalone ``cong_update`` and ``lcmp_decide`` entries
-    stand beside them, launched by phase switch (``core.switchd``) and
-    timed at its shapes."""
+    cosim and the workers of phase sweep_mesh; the standalone
+    ``cong_update`` and ``lcmp_decide`` entries stand beside them,
+    launched by phase switch (``core.switchd``) and timed at its
+    shapes."""
     runs = {**runs, **{f"sweep/{g}": r for g, r in sweeps.items()}}
     meta = {"monitor_tick": ("src/repro_torch/kernels/csrc/cong_update.cu",
                              "src/repro/kernels/cong_update.py:74", "cong_update"),
@@ -3693,7 +3824,9 @@ def main() -> int:
     runs = phase_runs(dev)
     packet_runs = phase_packet(dev)
     phase_profile(dev)
-    sweeps = phase_sweep(dev, runs)
+    with start_mesh_workers(dev) as workers:
+        sweeps = phase_sweep(dev, runs)
+        mesh = phase_sweep_mesh(dev, sweeps, workers)
     fidelity = phase_packet_sweep(dev, packet_runs)
     phase_sanitize(dev)
     cosim = phase_cosim(dev)
@@ -3707,7 +3840,7 @@ def main() -> int:
     phase_launch_train(dev)
     phase_dryrun(dev, info["nvidia_smi"])
     emit(kernel_summary(checks, {**runs, **packet_runs, "cosim": cosim,
-                                 "switch": switch}, train,
+                                 "switch": switch, "sweep_mesh": mesh}, train,
                         {**sweeps, **fidelity}, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})

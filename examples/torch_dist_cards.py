@@ -32,7 +32,14 @@ card, which every rank shares over Gloo (NCCL refuses two ranks on one
 device): ``gloo`` times the pod reduce's collectives on CUDA tensors,
 small and large; ``dtensor`` places a 2 x 2 ``DeviceMesh`` and runs a
 DTensor matmul with its backward. Each rank prints as it goes, so a
-rank that dies shows where. Imports nothing of the JAX package.
+rank that dies shows where.
+
+``--probe sweep`` runs Fig. 5's 15-cell grid (``chip_smoke.SWEEPS``)
+through ``run_sweep(use_mesh=True)``, one worker process per visible
+card (with one card, its runner on ``[cuda:0, cuda:0]``), against the
+merged run on card 0: every cell's final state bit for bit, with each
+worker's card, start-up and peak memory and both walls. Imports nothing
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -297,14 +304,47 @@ def probe(kind: str) -> int:
     return 0 if all(c == 0 for c in codes) else 1
 
 
+def probe_sweep() -> int:
+    from chip_smoke import SWEEPS, same_final
+    from repro_torch.netsim import experiment as pexp
+    from repro_torch.netsim import sweep
+    if not torch.cuda.is_available():
+        print("--probe sweep needs a card", file=sys.stderr)
+        return 2
+    specs = [pexp.ExpSpec(**kw) for kw in SWEEPS["fig5"]]
+    cards = torch.cuda.device_count()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    merged = sweep.run_sweep(specs, device=dev)
+    torch.cuda.synchronize()
+    merged_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if cards > 1:
+        rep = sweep.run_sweep(specs, use_mesh=True)
+    else:
+        rep = sweep.run_sharded(specs, [dev, dev])
+    wall = time.perf_counter() - t0
+    ok = all(same_final(a.final, b.final)
+             for a, b in zip(merged.results, rep.results))
+    print(json.dumps({"check": "sweep", "cards": cards,
+                      "names": [torch.cuda.get_device_name(i)
+                                for i in range(cards)],
+                      "cells": len(specs), "workers": rep.workers,
+                      "merged_wall_s": merged_wall, "sharded_wall_s": wall,
+                      "bit_for_bit": ok}), flush=True)
+    return 0 if ok else 1
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
     ap.add_argument("--small", action="store_true")
-    ap.add_argument("--probe", choices=("gloo", "dtensor"))
+    ap.add_argument("--probe", choices=("gloo", "dtensor", "sweep"))
     args = ap.parse_args()
+    if args.probe == "sweep":
+        return probe_sweep()
     if args.probe:
         return probe(args.probe)
     if args.device == "cuda" and torch.cuda.device_count() < WORLD:

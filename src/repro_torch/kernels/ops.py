@@ -51,3 +51,10 @@ def counts() -> dict:
 def reset_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+
+
+def add_counts(launches: dict) -> None:
+    """Add another process's ``counts()`` (a sweep worker's) to this one's,
+    so ``counts()`` reads what a call launched wherever it ran."""
+    for name, n in launches.items():
+        _COUNTED[name].launches += n

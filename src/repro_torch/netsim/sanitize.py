@@ -57,13 +57,20 @@ _NOT_YET = (1 << 31) - 1     # a check slot that has not failed
 
 class InvariantError(RuntimeError):
     """An invariant failed: ``str(e)`` is the reference's message of the
-    first failure; ``invariant`` names it and ``step`` is where it
-    first failed."""
+    first failure; ``invariant`` names it, ``step`` is where it first
+    failed and ``slot`` is that check's place among a step's checks (the
+    same list for every world of one configuration, so the least
+    ``(step, slot)`` over a sweep group's shards is the failure the
+    merged run reports). Pickles with all three."""
 
-    def __init__(self, message: str, step: int):
+    def __init__(self, message: str, step: int, slot: int = 0):
         super().__init__(message)
         self.invariant = message.split(":", 1)[0]
         self.step = step
+        self.slot = slot
+
+    def __reduce__(self):
+        return type(self), (str(self), self.step, self.slot)
 
 
 def enabled(cfg: SimConfig) -> bool:
@@ -308,7 +315,8 @@ class Checker:
         first = self.first.tolist()
         step = min(first)
         if step != _NOT_YET:
-            raise InvariantError(self.msgs[first.index(step)], step)
+            slot = first.index(step)
+            raise InvariantError(self.msgs[slot], step, slot)
 
 
 def step_check(t: int, st, ar: SimArrays, cfg: SimConfig, checker: Checker):

@@ -12,10 +12,10 @@ epoch) within the bands of ``tests/test_torch_fluid_runs.py``, and the
 plain per-pair-law decisions against the reference's sweep-mode
 ``decide`` and ``_route_arrivals`` from carried state, integers exact.
 
-The reference's shard_map test is not ported: the port spreads no sweep
-over cards yet (ROADMAP.md queue A item 9), and ``use_mesh`` with more
-than one card raises, which is tested here instead. 60 ms horizons (600
-steps) as in the reference's file; about a minute on one worker.
+The reference's shard_map test has its counterpart in
+``tests/test_torch_sweep_mesh.py`` (the cells split over worker
+processes). 60 ms horizons (600 steps) as in the reference's file; about
+a minute on one worker.
 """
 import dataclasses
 
@@ -135,13 +135,6 @@ def test_sweep_staleness_axes_bit_for_bit():
     assert bat.num_groups == 2
     for a, b in zip(seq.results, bat.results):
         _same(a, b)
-
-
-def test_use_mesh_with_more_cards_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        sweep.run_sweep(_grid()[:2], use_mesh=True)
 
 
 def test_entry_point_needs_a_card_unless_cpu_is_asked(monkeypatch):

@@ -62,3 +62,47 @@ MUTATIONS = {
     "cong_quantized": _cong_quantized,
     "completion_identity": _completion_identity,
 }
+
+
+# ------------------------------------------- worker-side set-up helpers
+# Initializers of ``repro_torch.netsim.sweep`` worker processes
+# (``run_sharded(..., initializer=(fn, args))``), which must import them
+# by name: ``tests/test_torch_sweep_mesh.py``.
+def _first_done_split(t, st):
+    """``queue_nonneg`` at the steps at which one of the world's flows has
+    completed, ``cong_quantized`` at the others: worlds that hold
+    different cells fail at different steps, or at one step by different
+    invariants."""
+    done = st.done.any()
+    return dataclasses.replace(
+        st, q_bytes=torch.where(done, st.q_bytes - 1.0, st.q_bytes),
+        c_path=torch.where(done, st.c_path, torch.full_like(st.c_path, 999)))
+
+
+def install(name: str) -> None:
+    """Install corruptor ``name`` (a key of ``MUTATIONS``, or
+    ``"first_done_split"``) on this process's sanitizer."""
+    from repro_torch.netsim import sanitize
+    sanitize._MUTATION = {**MUTATIONS,
+                          "first_done_split": _first_done_split}[name]
+
+
+def _raise_at(t, st, step):
+    if t == step:
+        raise ValueError(f"seeded worker failure at step {step}")
+    return st
+
+
+def install_raise_at(step: int) -> None:
+    """A corruptor that raises ``ValueError`` at ``step`` (a checked run
+    only)."""
+    import functools
+
+    from repro_torch.netsim import sanitize
+    sanitize._MUTATION = functools.partial(_raise_at, step=step)
+
+
+def exit_now(code: int) -> None:
+    """End this process at once, as a crash would."""
+    import os
+    os._exit(code)
