@@ -36,7 +36,16 @@ the script exits non-zero and prints no result line. Phases:
    kernels also timed apart; both also with a random law
    per pair (the sweep's ``pair_policy``) on the merged world of the
    fig5 group and at the bulk shape; a ``lcmp_decide`` call with 9
-   candidates must raise on the card;
+   candidates must raise on the card; ``switch_route`` (the switch's
+   batch: probe and decide, then commit) at phase switch's shape,
+   batch by batch against its plain version from the same switch, its
+   outputs and whole cache bit for bit (hits, inserts, colliding lanes,
+   repeated ids, a dead port), then timed on a batch that hits half its
+   lanes and inserts the other half every call; ``cong_update`` through
+   the switch's launcher (``SwitchMonitor``) the same way; and the launch
+   floor (``floor_ms``: a one-element ``fill_`` replayed from a CUDA graph,
+   timed as the kernels are), which every entry of the ``kernels`` line
+   carries;
 5. run: the runs of ``ALONE`` through ``run_experiment`` (fig5's
    testbed8 lcmp, ecmp, wcmp and matchrdma, fig10's CC laws,
    fig_multipath's fluid rows but the re-decision cells of phase sweep):
@@ -111,11 +120,16 @@ the script exits non-zero and prints no result line. Phases:
 13. switch: the switch object model (``core.switchd``: 48 ports, 8
    candidates, a 65,536-slot flow cache) over 200 ticks of random queues
    and 4,096 arrivals (half established), a port death at tick 100 and
-   GC every 50 ticks, through the standalone ``cong_update`` and
-   ``lcmp_decide`` entries; choices, new-flow flags, registers and the
-   whole cache equal to the same run through the plain versions on the
-   card, bit for bit; a colliding batch's cache equal to the CPU's;
-   more than 8 candidates refused;
+   GC every 50 ticks, through the switch's launchers: one ``cong_update``
+   launch and one ``switch_route`` call a tick, no ``lcmp_decide`` and no
+   plain version, every call of ticks 1-199 under
+   ``torch.cuda.set_sync_debug_mode("error")``; choices, new-flow flags,
+   registers, ``c_cong`` and the whole cache equal to the same run
+   through the plain versions on the card (``ops.switch_monitor`` and
+   ``ops.switch_route`` swapped for them), bit for bit; the synchronized
+   ``route_batch`` median; a colliding batch (4,096 lanes over 64 slots)
+   through ``fc.insert`` and through ``route_batch`` equal to the CPU's;
+   more than 8 candidates refused by ``make_switch``;
 14. device_vs_cpu: 50 ms of testbed8 lcmp, testbed8_failover lcmp (a
    trip at 25 ms), a 3-cell sweep group, and the packet engine's testbed8 lcmp
    and failover runs on the card and on the CPU (plain versions) must
@@ -193,8 +207,8 @@ then the ``kernels`` summary line and the result line. Phase 4 also
 holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
 for bit, at 1024, 2^16 and 2^24 elements and at the train phase's two
 wire-leg sizes, and times the standalone ``cong_update`` and
-``lcmp_decide`` entries first at the shapes phase switch launches them
-at (48 ports; 4,096 flows x 8 candidates).
+``lcmp_decide`` entries first at phase switch's shapes (48 ports; 4,096
+flows x 8 candidates).
 """
 from __future__ import annotations
 
@@ -867,6 +881,148 @@ def check_lcmp_decide(dev, F: int, P: int, label: str, iters: int) -> dict:
     # + 1) candidate bytes, a 4-byte result
     b = bound(F * (4 + 9 * P + 4))
     return dict(shape=label, F=F, P=P, max_abs_err=err, **tm, **b)
+
+
+def launch_floor(iters: int = 200) -> float:
+    """The least device time of a launch replayed from a CUDA graph on
+    this card: a one-element ``fill_``, timed as ``graph_ms`` times the
+    kernels."""
+    x = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: x.fill_(1.0), iters)
+
+
+def check_switch_monitor(dev, iters: int) -> dict:
+    """The switch's monitor pass at phase switch's shape through its
+    launcher (``SwitchMonitor``: one ``cong_update`` launch a tick,
+    registers and ``c_cong`` written in place) against the plain version
+    over 6 ticks bit for bit; then the launcher's and the plain version's
+    times, and the host time per tick of the launcher beside the
+    per-call wrapper's (``ops.cong_update``: re-check, re-pack and a new
+    ``c_cong`` each call)."""
+    from repro_torch.core import switchd
+    from repro_torch.kernels import ops, ref
+    tables, delays, caps, cport, queues, _ = switch_inputs(dev)
+    sws = [switchd.make_switch(tables, delays, caps, cport, SWITCH["ports"],
+                               64, device=dev) for _ in range(2)]
+    err = 0
+    for tick in range(6):
+        k = switchd.monitor_tick(sws[0], queues[tick * 30], tick * 100)
+        cong, c_cong = ref.switch_monitor_ref(sws[1], queues[tick * 30],
+                                              tick * 100)
+        sws = [k, dataclasses.replace(sws[1], cong=cong, c_cong=c_cong)]
+        torch.cuda.synchronize()
+        pairs = [(k.c_cong, c_cong)] + [(getattr(k.cong, f), getattr(cong, f))
+                                        for f in ("queue_cur", "queue_prev",
+                                                  "trend", "dur_cnt",
+                                                  "last_sample")]
+        err = max(err, max(int((a.long() - b.long()).abs().max())
+                           for a, b in pairs))
+    require(err == 0, f"cong_update switch: the launcher equals plain (err {err})")
+    sw, q = sws[0], queues[100]
+    params = switchd.SwitchParams().cong
+    tm = timings(lambda: sw.monitor(q, 0, params),
+                 lambda: ref.switch_monitor_ref(sw, q, 0, params), iters)
+    n = SWITCH["ports"]
+    return dict(shape=f"switch N={n} (SwitchMonitor)", N=n, max_abs_err=err,
+                **tm, host_us=host_us(lambda: switchd.monitor_tick(sw, q, 0)),
+                host_us_per_call_wrapper=host_us(
+                    lambda: ops.cong_update(sw.cong, q, 0, sw.tables, params)),
+                # per port: reads the queue, queue_cur, trend, dur_cnt and a
+                # 15-int trend_thresh row; writes 5 registers and c_cong;
+                # the shared q_thresh and level_score once
+                **bound(n * (4 + 15 + 6) * 4 + (15 + 16) * 4))
+
+
+def paired_ids(capacity: int, pairs: int, seed: int) -> torch.Tensor:
+    """``2 * pairs`` distinct uint32 ids (int64), lanes 2j and 2j + 1 on
+    one cache slot and the pairs on distinct slots: routed over and over
+    through a cache that holds one of each pair, half the lanes hit and
+    half insert, each call."""
+    from repro_torch.core.select import fmix32
+    rng = np.random.default_rng(seed)
+    ids = np.unique(rng.integers(0, 2**32, 4 * capacity, dtype=np.uint64))
+    slots = (fmix32(torch.from_numpy(ids.astype(np.int64))) % capacity).numpy()
+    order = np.argsort(slots, kind="stable")
+    ids, slots = ids[order], slots[order]
+    first = np.flatnonzero(np.r_[True, slots[1:] != slots[:-1]])
+    two = first[(first + 1 < len(slots)) & (slots[np.minimum(first + 1, len(slots) - 1)]
+                                              == slots[first])]
+    two = rng.permutation(two)[:pairs]
+    require(len(two) == pairs, f"paired_ids: {pairs} slots with two ids")
+    return torch.from_numpy(np.stack([ids[two], ids[two + 1]], 1)
+                            .reshape(-1).astype(np.int64))
+
+
+def switch_route_bytes(sw, ids: torch.Tensor, choice: torch.Tensor,
+                       is_new: torch.Tensor) -> int:
+    """Bytes ``switch_route`` must move on this batch: per lane the 8-byte
+    id in and 5 bytes out; per distinct probed slot its 13 cache bytes;
+    per refreshed slot 4 bytes, per inserted slot 17; the candidates'
+    9 bytes and their ports' 5."""
+    from repro_torch.core.select import fmix32
+    slot = (fmix32(ids) % sw.cache.capacity).cpu()
+    new, chosen = is_new.cpu(), choice.cpu() >= 0
+    ins = set(slot[new & chosen].tolist())
+    hit = set(slot[~new].tolist()) - ins
+    P = sw.c_path.shape[0]
+    return (len(ids) * 13 + len(set(slot.tolist())) * 13 + len(hit) * 4
+            + len(ins) * 17 + P * (9 + 5))
+
+
+def check_switch_route(dev, iters: int) -> dict:
+    """``switch_route`` at phase switch's shape (4,096 arrivals, 8
+    candidates, a 65,536-slot cache) against its plain version on the
+    card, batch by batch from the same switch: every output and the
+    whole cache bit for bit, over batches with hits, inserts, colliding
+    lanes, repeated ids, congestion, a dead port and a dead cached
+    egress; then both timed on a batch of slot pairs that hits half its
+    lanes and inserts the other half every call."""
+    from repro_torch.core import switchd
+    from repro_torch.kernels import ops, ref
+    tables, delays, caps, cport, queues, flows = switch_inputs(dev)
+    C, F = SWITCH["capacity"], SWITCH["batch"]
+    sw = switchd.make_switch(tables, delays, caps, cport, SWITCH["ports"], C,
+                             device=dev)
+    dead = int(cport[int(torch.argmin(sw.c_path))])
+    before = ops.counts()["switch_route"]
+    err, hits, inserts = 0, 0, 0
+    for tick in range(8):
+        sw = switchd.monitor_tick(sw, queues[tick * 25], tick * 100)
+        if tick == 5:
+            alive = torch.ones(SWITCH["ports"], dtype=torch.bool, device=dev)
+            alive[dead] = False
+            sw = switchd.set_port_liveness(sw, alive)
+        ids = flows[tick].clone()
+        ids[F // 4: F // 4 + 64] = ids[:64]            # repeated ids
+        plain = ref.switch_route_ref(sw, ids, tick * 100)
+        cache, choice, is_new = ops.switch_route(sw, ids, tick * 100)
+        torch.cuda.synchronize()
+        got = [choice, is_new] + [getattr(cache, f.name)
+                                  for f in dataclasses.fields(cache)]
+        want = [plain[1], plain[2]] + [getattr(plain[0], f.name)
+                                       for f in dataclasses.fields(plain[0])]
+        err = max(err, max(int((a.long() - b.long()).abs().max())
+                           for a, b in zip(got, want)))
+        hits += int((~is_new).sum())
+        inserts += int((is_new & (choice >= 0)).sum())
+    require(err == 0, f"switch_route: kernel equals plain (err {err})")
+    require(hits > 0 and inserts > 0, "switch_route: hits and inserts")
+    require(ops.counts()["switch_route"] == before + 8,
+            "switch_route: one call a batch")
+    # timed: slot pairs, the cache holding the first id of each pair
+    ids = paired_ids(C, F // 2, SWITCH["seed"] + 2).to(dev)
+    sw = switchd.route_batch(sw, ids[0::2].contiguous(), 900)[0]
+    plain = ref.switch_route_ref(sw, ids, 1000)
+    out = dict(shape=f"switch F={F} P={SWITCH['cands']} C={C}", F=F,
+               P=SWITCH["cands"], C=C, batches=8, hits=hits, inserts=inserts,
+               max_abs_err=err, timed_hits=int((~plain[2]).sum()),
+               **timings(lambda: sw.route(ids, 1000, sw.route.params),
+                         lambda: ref.switch_route_ref(sw, ids, 1000), iters),
+               host_us=host_us(lambda: switchd.route_batch(sw, ids, 1000)),
+               **bound(switch_route_bytes(sw, ids, plain[1], plain[2])))
+    require(out["timed_hits"] == F // 2, "switch_route: the timed batch hits "
+            "half its lanes")
+    return out
 
 
 def random_state(flat: dict, rng, kind: str) -> dict:
@@ -1592,13 +1748,18 @@ def phase_kernel_check(dev, shapes) -> dict:
             cong.append(check_cong_update(dev, s["tables"], f"{name} N={s['L']}", 200))
             decide.append(check_lcmp_decide(dev, s["A"], s["K"],
                                              f"{name} F={s['A']} P={s['K']}", 200))
-    # the standalone entries at the shapes phase switch launches them at
-    # (first: the kernels line's standalone rows read it)
+    # the standalone entries at phase switch's shapes (first: the kernels
+    # line's standalone rows read it): cong_update through the switch's
+    # launcher, which phase switch runs, and through the per-call wrapper;
+    # lcmp_decide, the TPU kernel's contract, which no path launches since
+    # switch_route took the switch's batches
     cong.insert(0, check_cong_update(dev, switch_inputs(dev)[0],
                                      f"switch N={SWITCH['ports']}", 200))
+    cong.insert(0, check_switch_monitor(dev, 200))
     decide.insert(0, check_lcmp_decide(
         dev, SWITCH["batch"], SWITCH["cands"],
         f"switch F={SWITCH['batch']} P={SWITCH['cands']}", 200))
+    switch_route = [check_switch_route(dev, 200)]
     tables = bulk_tables(dev, BULK)
     monitor.append(check_monitor(dev, tables, f"bulk N={BULK}", 20))
     cong.append(check_cong_update(dev, tables, f"bulk N={BULK}", 20))
@@ -1636,6 +1797,7 @@ def phase_kernel_check(dev, shapes) -> dict:
         torch.cuda.empty_cache()
     lap("qsr")
     out = {"phase": "kernel_check", "library_ms": None, "section_s": section_s,
+           "floor_ms": launch_floor(), "switch_route": switch_route,
            "monitor_tick": monitor, "route_arrivals": route,
            "route_arrivals_cases": route_cases, "decide": decide_timed,
            "decide_cases": decide_cases,
@@ -1732,7 +1894,8 @@ def run_main_path(dev, name: str) -> dict:
             f"{name}: one route_arrivals launch per step")
     require(counts["decide"] == decides,
             f"{name}: one decide launch per trip step and epoch or armed slot")
-    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+    require(counts["cong_update"] == counts["lcmp_decide"]
+            == counts["switch_route"] == 0,
             f"{name}: the standalone entries are not on the path")
     require(plain.calls == 0, f"{name}: no plain version ran on the card")
     require(np.isfinite(stats.slowdown).all() and (stats.slowdown >= 1).all(),
@@ -1851,7 +2014,8 @@ def run_sweep_group(dev, group: str, runs: dict) -> dict:
             "step for the whole group")
     require(counts["decide"] == decides,
             f"sweep {group}: one decide launch per trip step and epoch")
-    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+    require(counts["cong_update"] == counts["lcmp_decide"]
+            == counts["switch_route"] == 0,
             f"sweep {group}: the standalone entries are not on the path")
     require(plain.calls == 0, f"sweep {group}: no plain version ran on the card")
     redecides = engine.wants_redecide(cfg)
@@ -2067,7 +2231,8 @@ def phase_sweep_mesh(dev, sweeps: dict, workers) -> dict:
     for name in ("monitor_tick", "route_arrivals", "decide"):
         require(counts[name] == want[name], f"sweep_mesh: {name} launched "
                 f"{counts[name]} times, {want[name]} expected")
-    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+    require(counts["cong_update"] == counts["lcmp_decide"]
+            == counts["switch_route"] == 0,
             "sweep_mesh: the standalone entries are not on the path")
     return out
 
@@ -2147,7 +2312,8 @@ def fidelity_grid(dev, grid: str, packet_runs: dict) -> dict:
             f"{grid}: one monitor_tick and one route_arrivals launch a step "
             "for each group")
     require(counts["decide"] == decides, f"{grid}: no decide launch")
-    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+    require(counts["cong_update"] == counts["lcmp_decide"]
+            == counts["switch_route"] == 0,
             f"{grid}: the standalone entries are not on the path")
     require(plain.calls == 0, f"{grid}: no plain version ran on the card")
     for row, res in zip(rows, rep.results):
@@ -2371,7 +2537,8 @@ def phase_cosim(dev) -> dict:
             "per group")
     require(counts["decide"] == 0, "cosim: no trip, epoch or flowlet gap, so "
             "no decide")
-    require(counts["cong_update"] == counts["lcmp_decide"] == 0,
+    require(counts["cong_update"] == counts["lcmp_decide"]
+            == counts["switch_route"] == 0,
             "cosim: the standalone entries are not on the path")
     require(plain.calls == 0, "cosim: no plain version ran on the card")
 
@@ -2419,34 +2586,57 @@ def switch_inputs(dev):
 def switch_run(dev, inputs, timed: bool = False) -> dict:
     """Phase switch's 200 ticks through ``core.switchd``; returns the
     choices, new-flow flags, final switch and (``timed``) the synchronized
-    host µs of each ``route_batch``."""
+    host µs of each ``route_batch``. A timed run makes each call of ticks
+    1.. under ``torch.cuda.set_sync_debug_mode("error")`` (tick 0 follows
+    ``make_switch``, whose launcher reads the candidates' ports back)."""
     from repro_torch.core import switchd
     tb, delays, caps, cport, queues, flows = inputs
     params = switchd.SwitchParams(idle_timeout_us=SWITCH["idle_timeout_us"])
     sw = switchd.make_switch(tb, delays, caps, cport, SWITCH["ports"],
                              SWITCH["capacity"], params, device=dev)
     dead = int(cport[int(torch.argmin(sw.c_path))])
+
+    def call(tick, fn, *args):
+        if timed and tick:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     choices, news, us = [], [], []
     for tick in range(SWITCH["ticks"]):
         now = tick * 100
         if tick == SWITCH["dead_tick"]:
             alive = torch.ones(SWITCH["ports"], dtype=torch.bool, device=dev)
             alive[dead] = False
-            sw = switchd.set_port_liveness(sw, alive)
-        sw = switchd.monitor_tick(sw, queues[tick], now, params)
+            sw = call(tick, switchd.set_port_liveness, sw, alive)
+        sw = call(tick, switchd.monitor_tick, sw, queues[tick], now, params)
         if timed:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        sw, idx, new = switchd.route_batch(sw, flows[tick], now, params)
+        sw, idx, new = call(tick, switchd.route_batch, sw, flows[tick], now,
+                            params)
         if timed:
             torch.cuda.synchronize()
             us.append(1e6 * (time.perf_counter() - t0))
         if tick % SWITCH["gc_every"] == SWITCH["gc_every"] - 1:
-            sw = switchd.gc_tick(sw, now, params)
+            sw = call(tick, switchd.gc_tick, sw, now, params)
         choices.append(idx)
         news.append(new)
     return {"choice": torch.stack(choices), "is_new": torch.stack(news),
             "switch": sw, "dead_port": dead, "route_us": us}
+
+
+def same_switch(a, b) -> dict:
+    """Which parts of two switches' state are equal bit for bit (``b``'s
+    read on ``a``'s device)."""
+    def eq(x, y):
+        return torch.equal(x, y.to(x.device))
+    return {"c_cong": eq(a.c_cong, b.c_cong),
+            "cong": all(eq(getattr(a.cong, f.name), getattr(b.cong, f.name))
+                        for f in dataclasses.fields(a.cong)),
+            "cache": all(eq(getattr(a.cache, f.name), getattr(b.cache, f.name))
+                         for f in dataclasses.fields(a.cache))}
 
 
 def phase_switch(dev) -> dict:
@@ -2461,23 +2651,20 @@ def phase_switch(dev) -> dict:
         torch.cuda.synchronize()
     counts = ops.counts()
     # the same run through the plain versions, on the card
-    kernels = ops.cong_update, ops.lcmp_decide
-    ops.cong_update, ops.lcmp_decide = ref.cong_update_ref, ref.lcmp_decide_ref
+    kernels = ops.switch_monitor, ops.switch_route
+    ops.switch_monitor, ops.switch_route = (ref.switch_monitor_ref,
+                                            ref.switch_route_ref)
     try:
         want = switch_run(dev, inputs)
     finally:
-        ops.cong_update, ops.lcmp_decide = kernels
+        ops.switch_monitor, ops.switch_route = kernels
     a, b = got["switch"], want["switch"]
     same = {"choice": torch.equal(got["choice"], want["choice"]),
             "is_new": torch.equal(got["is_new"], want["is_new"]),
-            "c_cong": torch.equal(a.c_cong, b.c_cong),
-            "cong": all(torch.equal(getattr(a.cong, f.name),
-                                    getattr(b.cong, f.name))
-                        for f in dataclasses.fields(a.cong)),
-            "cache": all(torch.equal(getattr(a.cache, f.name),
-                                     getattr(b.cache, f.name))
-                         for f in dataclasses.fields(a.cache))}
-    # a colliding batch: 4,096 lanes over 64 slots, on the card and the CPU
+            **same_switch(a, b)}
+    # a colliding batch: 4,096 lanes over 64 slots, on the card and the CPU,
+    # through fc.insert and through switch_route after a first batch of
+    # half its ids (so earlier hits too)
     rng = np.random.default_rng(SWITCH["seed"] + 1)
     ids = torch.tensor(rng.integers(0, 2**32, 4096, dtype=np.uint64)
                        .astype(np.int64))
@@ -2489,12 +2676,26 @@ def phase_switch(dev) -> dict:
     collide = all(torch.equal(getattr(caches["cpu"], f.name),
                               getattr(caches[dev], f.name).cpu())
                   for f in dataclasses.fields(caches["cpu"]))
-    # more than 8 candidates: refused, as the kernel does
-    wide = switchd.make_switch(tables.bootstrap_tables([100] * 9, device=dev),
-                               [5_000] * 9, [100] * 9, list(range(9)), 9,
-                               device=dev)
+    routed = {}
+    for d in ("cpu", dev):
+        tb, delays, caps, cport = switch_inputs(torch.device(d))[:4]
+        sw = switchd.make_switch(tb, delays, caps, cport, SWITCH["ports"], 64,
+                                 device=d)
+        res = []
+        for batch, now in ((ids[:2048], 5), (ids, 7)):
+            sw, idx, new = switchd.route_batch(sw, batch.to(d), now)
+            res += [idx.cpu(), new.cpu()]
+        routed[d] = (res, sw)
+    collide_route = (all(torch.equal(x, y) for x, y in
+                         zip(routed["cpu"][0], routed[dev][0]))
+                     and all(same_switch(routed["cpu"][1],
+                                         routed[dev][1]).values()))
+    # more than 8 candidates: refused when the switch is made, as the
+    # kernel takes at most 8
     try:
-        switchd.route_batch(wide, torch.arange(4, device=dev), 0)
+        switchd.make_switch(tables.bootstrap_tables([100] * 9, device=dev),
+                            [5_000] * 9, [100] * 9, list(range(9)), 9,
+                            device=dev)
         refused = False
     except ValueError:
         refused = True
@@ -2505,14 +2706,20 @@ def phase_switch(dev) -> dict:
            "cache_valid": int(a.cache.valid.sum()),
            "route_batch_us_median": float(np.median(us)),
            "route_batch_us_mean": float(us.mean()),
-           "collision_batch_equals_cpu": collide, "wide_set_refused": refused}
+           "no_sync_ticks": f"1-{SWITCH['ticks'] - 1}",
+           "collision_batch_equals_cpu": collide,
+           "collision_route_equals_cpu": collide_route,
+           "wide_set_refused": refused}
     emit(out)
     require(all(same.values()), "switch: the card's run equals the plain "
             "run bit for bit")
-    require(counts["cong_update"] == counts["lcmp_decide"] == SWITCH["ticks"],
-            "switch: one cong_update and one lcmp_decide launch a tick")
+    require(counts["cong_update"] == counts["switch_route"] == SWITCH["ticks"],
+            "switch: one cong_update and one switch_route call a tick")
+    require(counts["lcmp_decide"] == 0, "switch: no standalone lcmp_decide "
+            "launch on the path")
     require(plain.calls == 0, "switch: no plain version ran on the card")
-    require(collide, "switch: a colliding batch's cache equals the CPU's")
+    require(collide and collide_route,
+            "switch: a colliding batch's cache equals the CPU's")
     require(refused, "switch: more than 8 candidates refused on the card")
     return out
 
@@ -3743,9 +3950,12 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
     failover's read), with their launches summed over the runs of
     phases run and packet, the groups of phases sweep, packet_sweep and
     cosim and the workers of phase sweep_mesh; the standalone
-    ``cong_update`` and ``lcmp_decide`` entries stand beside them,
-    launched by phase switch (``core.switchd``) and timed at its
-    shapes."""
+    ``cong_update`` and ``lcmp_decide`` entries stand beside them, timed
+    at phase switch's shapes (``cong_update`` through the switch's
+    launcher, which phase switch runs; ``lcmp_decide``, the TPU
+    kernel's contract, is on no path). ``switch_route``, the switch's
+    batch (``core.switchd``), is launched by phase switch and timed at
+    its shape. Every entry carries the launch floor (``floor_ms``)."""
     runs = {**runs, **{f"sweep/{g}": r for g, r in sweeps.items()}}
     meta = {"monitor_tick": ("src/repro_torch/kernels/csrc/cong_update.cu",
                              "src/repro/kernels/cong_update.py:74", "cong_update"),
@@ -3773,6 +3983,14 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
                                            for r in runs.values()),
                            **{k: alone[k] for k in ("shape", "ms", "plain_ms",
                                                     "call_ms", "bound_ms")}}})
+    out.append({
+        "name": "switch_route", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lcmp_decide.cu",
+        "replaces": "src/repro/kernels/lcmp_decide.py:93",
+        "launches": sum(r["launches"]["switch_route"] for r in runs.values()),
+        "launches_by_run": {"switch": runs["switch"]["launches"]["switch_route"]},
+        **kernel_fields(checks["switch_route"]),
+        "host_us": checks["switch_route"][0]["host_us"]})
     # the qsr pair at the train phase's first-leg shape (every pod's
     # padded gradient; the dequant of the received partials and of the
     # gathered mean have the same length), launched by the 3 int8 steps
@@ -3787,6 +4005,8 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
             "source": "src/repro_torch/kernels/csrc/qsr_int8.cu",
             "replaces": replaces, "launches": sum(by_run.values()),
             "launches_by_run": by_run, **kernel_fields(checks[name])})
+    for entry in out:
+        entry["floor_ms"] = checks["floor_ms"]
     return {"kernels": out}
 
 

@@ -47,6 +47,7 @@ ARGTYPES = {
     "decide_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _P],
     "decide_pairs_launch": [_P, _I, _I, _P],
     "decide_pick_launch": [_P, _I, _P, _P, _P, _P, _P],
+    "switch_route_launch": [_P, _I, _P, _P, _P, _I, _P],
     "qsr_int8_launch": [_LL, _P, _P, _P, _P, _P],
     "qsr_dequant_launch": [_LL, _P, _P, _P, _P],
 }
@@ -54,7 +55,7 @@ ARGTYPES = {
 LAUNCHERS = {"cong_update": ("cong_update_launch", "monitor_tick_launch"),
              "lcmp_decide": ("lcmp_decide_launch", "route_arrivals_launch",
                              "decide_launch", "decide_pairs_launch",
-                             "decide_pick_launch"),
+                             "decide_pick_launch", "switch_route_launch"),
              "qsr_int8": ("qsr_int8_launch", "qsr_dequant_launch")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}

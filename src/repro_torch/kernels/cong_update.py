@@ -13,10 +13,17 @@ about that. Two entries share its register math:
   run: it checks the fixed tensors once, and a step passes only the
   queues, the time and the ring slot.
 
+``switch_monitor`` is the switch's monitor pass (``core.switchd``)
+through the ``cong_update`` entry: ``SwitchMonitor``, its launcher for a
+switch, binds the switch's registers and ``c_cong`` once, and a tick
+passes only the queue cells and the time; its launches count as
+``cong_update``'s.
+
 For CPU tensors the wrappers run the plain versions
-(``ref.cong_update_ref``, ``ref.monitor_tick_ref``); for CUDA tensors
-they launch the kernel or raise. ``cong_update.launches`` and
-``monitor_tick.launches`` count kernel launches only.
+(``ref.cong_update_ref``, ``ref.monitor_tick_ref``,
+``ref.switch_monitor_ref``); for CUDA tensors they launch the kernel or
+raise. ``cong_update.launches`` and ``monitor_tick.launches`` count
+kernel launches only.
 """
 from __future__ import annotations
 
@@ -128,6 +135,80 @@ def cong_update(state: CongState, queue_cells: torch.Tensor, now_us: int,
             ctypes.byref(args), queue_cells, int(slot), int(now_us), dev.index)
     cong_update.launches += 1
     return state, c_cong
+
+
+class SwitchMonitor:
+    """The monitor pass of one switch on the card, one ``cong_update``
+    launch a tick.
+
+    Built once from the switch's registers ``state``, its ``c_cong``
+    (both written in place by every tick), its tables and parameters,
+    checked here. A call passes the tick's queue cells (N,) int32,
+    checked cheaply, and the time.
+    """
+
+    def __init__(self, state: CongState, c_cong: torch.Tensor,
+                 tables: SwitchTables, params: CongParams):
+        dev = c_cong.device
+        if dev.type != "cuda":
+            raise ValueError(f"cong_update: unsupported device {dev}")
+        self.args = _args("cong_update", state, tables, params, c_cong, None,
+                          dev)
+        self.bound = (state, *[getattr(state, r) for r in _REGS], c_cong)
+        self.tables, self.params = tables, params
+        self.n, self.dev_index = c_cong.shape[0], dev.index
+        self.args_ref = ctypes.byref(self.args)
+        self.launcher = build.load("cong_update").cong_update_launch
+
+    def bound_to(self, state: CongState, c_cong: torch.Tensor) -> bool:
+        """Whether these are the tensors the launcher was built on."""
+        b = self.bound
+        return (state is b[0] and state.queue_cur is b[1]
+                and state.queue_prev is b[2] and state.trend is b[3]
+                and state.dur_cnt is b[4] and state.last_sample is b[5]
+                and c_cong is b[6])
+
+    def __call__(self, queue_cells: torch.Tensor, now_us: int,
+                 params: CongParams) -> None:
+        if (queue_cells.dtype is not torch.int32 or queue_cells.dim() != 1
+                or queue_cells.numel() != self.n
+                or not queue_cells.is_contiguous()
+                or queue_cells.get_device() != self.dev_index):
+            _check("cong_update", "queue_cells", queue_cells, torch.int32,
+                   (self.n,), torch.device("cuda", self.dev_index))
+        if params is not self.params and params != self.params:
+            raise ValueError("cong_update: the switch's monitor was built "
+                             f"with {self.params}, not {params}")
+        _now("cong_update", now_us)
+        if self.n == 0:             # no ports: no launch
+            return
+        _launch(self.launcher, "cong_update", self.args_ref, queue_cells, 0,
+                now_us, self.dev_index)
+        cong_update.launches += 1
+
+
+def switch_monitor(sw, queue_cells: torch.Tensor, now_us: int,
+                   params: CongParams = CongParams()):
+    """The monitor pass of switch ``sw`` (a ``core.switchd.SwitchState``)
+    over its N ports from the queue cells (N,) int32. Returns
+    ``(cong', c_cong)``.
+
+    On CUDA one ``cong_update`` launch through the switch's launcher
+    (``sw.monitor``) updates the registers and ``sw.c_cong`` IN PLACE and
+    returns them; on the CPU the plain version returns new ones.
+    """
+    dev = queue_cells.device
+    if dev.type == "cpu":
+        return ref.switch_monitor_ref(sw, queue_cells, now_us, params)
+    if dev.type != "cuda":
+        raise ValueError(f"cong_update: unsupported device {dev}")
+    monitor = sw.monitor
+    if monitor is None or not monitor.bound_to(sw.cong, sw.c_cong):
+        raise ValueError("cong_update: a switch on the card ticks through "
+                         "the launcher make_switch bound to its registers "
+                         "and c_cong, which it updates in place")
+    monitor(queue_cells, int(now_us), params)
+    return sw.cong, sw.c_cong
 
 
 class MonitorTick:

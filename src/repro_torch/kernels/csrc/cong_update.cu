@@ -31,7 +31,11 @@
 // level_score entries staged once per block in shared memory, and every
 // pointer and parameter that is fixed for a run passed in one struct that
 // the host builds once, so a step passes only the queue pointer, the ring
-// slot and the time.
+// slot and the time. At a launch this small, what is left past the launch
+// itself is rounds of dependent loads: cong_update_kernel issues each
+// port's loads before the block stages the shared tables, so the two
+// rounds overlap (monitor_tick_kernel, on the fluid engines' path, keeps
+// the order it was measured with).
 #include <cuda_runtime.h>
 
 #define NLEV 16
@@ -56,24 +60,43 @@ struct CongArgs {
   int high_water, w_ql, w_tl, w_dp, ewma_k, dur_shift, s_cong;
 };
 
-// The register update of port i from its queue depth q (cells); returns
-// C_cong and writes it to c_cong[i] and the ring slot.
+// What port i's update reads of its own: its registers and trend_thresh
+// row. cong_update_kernel loads it before the block's tables are staged,
+// so the two rounds of loads overlap.
+struct PortRegs {
+  int q_old, t_old, d_old;
+  int tth[NLEV - 1];
+};
+
+__device__ __forceinline__ PortRegs load_port(const CongArgs& a, long long i) {
+  PortRegs r;
+  r.q_old = a.queue_cur[i];
+  r.t_old = a.trend[i];
+  r.d_old = a.dur_cnt[i];
+  const int* tth = a.trend_thresh + i * (NLEV - 1);
+#pragma unroll
+  for (int k = 0; k < NLEV - 1; ++k) r.tth[k] = tth[k];
+  return r;
+}
+
+// The register update of port i from its queue depth q (cells) and its
+// loaded registers r; writes C_cong to c_cong[i] and the ring slot.
 __device__ __forceinline__ void cong_port(const CongArgs& a, long long i, int q,
-                                          const int* s_qth, const int* s_lsc,
-                                          int slot, int now_us) {
-  const int q_old = a.queue_cur[i];
-  const int t_old = a.trend[i];
-  const int d_old = a.dur_cnt[i];
+                                          const PortRegs& r, const int* s_qth,
+                                          const int* s_lsc, int slot,
+                                          int now_us) {
+  const int q_old = r.q_old;
+  const int t_old = r.t_old;
+  const int d_old = r.d_old;
 
   // Eq. (3): arithmetic shifts on signed ints (the trend goes negative)
   const int tr = t_old - (t_old >> a.ewma_k) + ((q - q_old) >> a.ewma_k);
 
-  const int* tth = a.trend_thresh + i * (NLEV - 1);
   int q_level = 0, t_level = 0;
 #pragma unroll
   for (int k = 0; k < NLEV - 1; ++k) {
     q_level += (s_qth[k] <= q) ? 1 : 0;
-    t_level += (tth[k] <= tr) ? 1 : 0;
+    t_level += (r.tth[k] <= tr) ? 1 : 0;
   }
 
   const int dur = (q_level >= a.high_water) ? d_old + 1 : (d_old >> 1);
@@ -104,10 +127,17 @@ __global__ void __launch_bounds__(THREADS) cong_update_kernel(
     const CongArgs a, const int* __restrict__ qcells, int slot, int now_us) {
   __shared__ int s_qth[NLEV - 1];
   __shared__ int s_lsc[NLEV];
-  stage_tables(a, s_qth, s_lsc);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // the port's loads first: in flight while the tables are staged
+  PortRegs r;
+  int q = 0;
+  if (i < a.n) {
+    r = load_port(a, i);
+    q = qcells[i];
+  }
+  stage_tables(a, s_qth, s_lsc);
   if (i >= a.n) return;
-  cong_port(a, i, qcells[i], s_qth, s_lsc, slot, now_us);
+  cong_port(a, i, q, r, s_qth, s_lsc, slot, now_us);
 }
 
 __global__ void __launch_bounds__(THREADS) monitor_tick_kernel(
@@ -120,7 +150,7 @@ __global__ void __launch_bounds__(THREADS) monitor_tick_kernel(
   // exact: a division by a power of two (see the header); the cast
   // truncates toward zero as PyTorch's float -> int32 conversion does
   const int q = __float2int_rz(__fdiv_rn(q_bytes[i], (float)CELL_BYTES));
-  cong_port(a, i, q, s_qth, s_lsc, slot, now_us);
+  cong_port(a, i, q, load_port(a, i), s_qth, s_lsc, slot, now_us);
 }
 
 static int blocks_of(long long n) { return (int)((n + THREADS - 1) / THREADS); }

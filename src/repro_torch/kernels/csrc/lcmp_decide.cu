@@ -5,12 +5,21 @@
 // invalid slots at 1<<24; keys cost*8 + slot sorted by the 19-comparator
 // Batcher odd-even network; keep ceil(m/keep_num) of the m valid candidates;
 // pick rank fmix32(flow_id) % keep; rank 0 when the least valid C_cong is at
-// or above cong_fallback; -1 when no candidate is valid. Three entries:
+// or above cong_fallback; -1 when no candidate is valid. Four entries:
 //
 // - lcmp_decide_launch keeps the TPU kernel's contract: per-flow candidate
 //   scores in, the candidate index out. One thread owns one flow and keeps
 //   its <= 8 keys in registers (the network's indices are compile-time
 //   constants, so the array never touches local memory).
+//
+// - switch_route_launch is the switch's whole batch of arrivals
+//   (core/switchd.py::route_batch: flow-cache lookup with lazy failover,
+//   refresh, the LCMP decision over the switch's <= 8 candidates, insert)
+//   in two kernels, writing the cache in place. Every arrival of a batch
+//   sees the same candidates, so the first kernel builds the switch's one
+//   LCMP record per block (lcmp_header) where the TPU contract sorts the
+//   same row once per flow; see switch_probe_kernel and
+//   switch_commit_kernel at the end of this file.
 //
 // - route_arrivals_launch is the fluid engine's whole arrival routing for
 //   one step (netsim/engine.py::_route_arrivals, reference
@@ -111,6 +120,16 @@
 // layout before, left 24 of 32 lanes idle and redid the pair's K x H
 // gathers, sort and weights for every decision.)
 //
+// switch_route must move per arrival its 8-byte id, 5 bytes of results and
+// its slot's 13 cache bytes, and write back what changed (4 bytes on a hit,
+// 17 on an insert): under 200 KB for a batch of 4096, some 0.05 us at
+// 3.35 TB/s, so two launches bound it. The cache (65,536 slots x 17 bytes)
+// stays in the 50 MB L2 between batches; the probes are random 1-8 byte
+// gathers, so neither TMA nor wgmma applies, and the per-lane id, choice and
+// flag accesses coalesce. The commit needs a second launch because a slot's
+// winner is the last bidding lane of the whole batch, known only when every
+// block has bid.
+//
 // Everything fixed for a run sits in one struct that the host builds once,
 // and the step's queue and eight field pointers in a second, which the host
 // rewrites only where a tensor changed, so a launch passes two struct
@@ -164,24 +183,29 @@ __device__ __forceinline__ void sort8(int (&key)[P_MAX]) {
   cmpx(key[1], key[2]); cmpx(key[3], key[4]); cmpx(key[5], key[6]);
 }
 
-// key[pick] with pick a runtime rank, without indexing the array by it
-__device__ __forceinline__ int key_at(const int (&key)[P_MAX], int pick) {
-  int picked = key[0];
+// The LCMP law's record header (see the note at the top) from 8 keys
+// cost*8 + slot (distinct, so the order is total) of m valid candidates
+// whose least C_cong is min_cong: sel the slot order, rank r's slot in bits
+// 3r..3r+2; n = keep = ceil(m / keep_num), 1 when min_cong is at or above
+// cong_fallback, 0 when m = 0; sel | n << 24 | law << 28. Sorts key.
+__device__ __forceinline__ uint32_t lcmp_header(int (&key)[P_MAX], int m,
+                                                int min_cong, int keep_num,
+                                                int cong_fallback, int law) {
+  sort8(key);
+  uint32_t sel = 0;
 #pragma unroll
-  for (int i = 1; i < P_MAX; ++i) picked = (pick == i) ? key[i] : picked;
-  return picked;
+  for (int r = 0; r < P_MAX; ++r)
+    sel |= (uint32_t)(key[r] & (P_MAX - 1)) << (3 * r);
+  const int keep = max((m + keep_num - 1) / keep_num, 1);
+  const int n = m == 0 ? 0 : (min_cong >= cong_fallback ? 1 : keep);
+  return sel | ((uint32_t)n << 24) | ((uint32_t)law << 28);
 }
 
-// The LCMP decision over 8 keys cost*8 + slot (distinct, so the order is
-// total): the candidate slot, or -1 when num_valid is 0.
-__device__ __forceinline__ int lcmp_choose(int (&key)[P_MAX], int num_valid,
-                                           int min_cong, uint32_t fid,
-                                           int keep_num, int cong_fallback) {
-  sort8(key);
-  const int keep = max((num_valid + keep_num - 1) / keep_num, 1);
-  int pick = (int)(fmix32(fid) % (uint32_t)keep);
-  if (min_cong >= cong_fallback) pick = 0;
-  return num_valid > 0 ? (key_at(key, pick) & (P_MAX - 1)) : -1;
+// The LCMP law's pick from its header and the hashed key hv = fmix32(fid):
+// the slot of rank hv % n, -1 when n is 0.
+__device__ __forceinline__ int lcmp_pick(uint32_t hdr, uint32_t hv) {
+  const uint32_t n = (hdr >> 24) & 15u;
+  return n > 0 ? (int)((hdr >> (3 * (hv % n))) & 7u) : -1;
 }
 
 // The least of v over lanes 0-7, in every lane (lanes 8-31 mix only among
@@ -216,8 +240,9 @@ __global__ void __launch_bounds__(THREADS) lcmp_decide_kernel(
     }
     key[i] = cost * P_MAX + i;  // the slot in the low bits breaks ties
   }
-  out[f] = lcmp_choose(key, num_valid, min_cong, (uint32_t)flow_ids[f],
-                       keep_num, cong_fallback);
+  out[f] = lcmp_pick(lcmp_header(key, num_valid, min_cong, keep_num,
+                                 cong_fallback, POLICY_LCMP),
+                     fmix32((uint32_t)flow_ids[f]));
 }
 
 extern "C" int lcmp_decide_launch(int F, int P, const void* flow_ids,
@@ -389,13 +414,11 @@ __device__ PairRec pair_record(const RouteArgs& a, int law, const Lane& l,
 #pragma unroll
       for (int i = 0; i < P_MAX; ++i)
         key[i] = __shfl_sync(FULL, cost * P_MAX + lane, i);
-      sort8(key);                    // distinct keys: a total order
-#pragma unroll
-      for (int r = 0; r < P_MAX; ++r)
-        sel |= (uint32_t)(key[r] & (P_MAX - 1)) << (3 * r);
       const int mc = min8(l.valid ? l.cc : SCORE_MAX + 1);  // least valid C_cong
-      const int keep = max((m + a.keep_num - 1) / a.keep_num, 1);
-      n = m == 0 ? 0 : (mc >= a.cong_fallback ? 1 : keep);
+      const uint32_t hdr = lcmp_header(key, m, mc, a.keep_num, a.cong_fallback,
+                                       law);
+      sel = hdr & 0xFFFFFFu;
+      n = (int)((hdr >> 24) & 15u);
       if (law == POLICY_LCMP_W) {   // rank `lane`'s weight; kept ranks are valid
         const int wr = __shfl_sync(FULL, capg, (sel >> (3 * (lane & 7))) & 7);
         w = lane < n ? max(wr, 1) : 0;
@@ -463,7 +486,7 @@ __device__ __forceinline__ int pick(const Record& r, uint32_t fid) {
   switch (law) {
     case POLICY_LCMP:
     case POLICY_LCMP_R:
-      return n > 0 ? (int)((sel >> (3 * (hv % (uint32_t)n))) & 7u) : -1;
+      return lcmp_pick(r.hdr, hv);
     case POLICY_LCMP_W:
     case POLICY_WCMP:
     case POLICY_REDTE: {
@@ -628,4 +651,132 @@ extern "C" int decide_launch(const RouteArgs* args, int N, const void* fids,
   const int err = decide_pairs_launch(args, t, sig_step, stream);
   if (err != 0) return err;
   return decide_pick_launch(args, N, fids, pairs, k_out, path_out, stream);
+}
+
+// Fixed for a switch (core/switchd.py); its layout is mirrored by
+// kernels/lcmp_decide.py::_SwitchArgs. The switch's state is updated in
+// place, so these pointers stay valid for the switch's life.
+struct SwitchArgs {
+  const int* c_path;                // (P,) installed C_path of each candidate
+  const int* cand_port;             // (P,) egress port of each candidate
+  const unsigned char* cand_valid;  // (P,) bool: candidate installed
+  const int* c_cong;                // (num_ports,) C_cong of the registers
+  const unsigned char* port_alive;  // (num_ports,) bool
+  long long* flow_id;               // (C,) the flow cache: key, uint32 values
+  int* out_idx;                     // (C,) cached candidate index
+  int* last_seen;                   // (C,) us
+  unsigned char* valid;             // (C,) bool
+  int* win;                         // (C,) scratch: -1 between batches
+  int capacity;                     // C
+  int P, alpha, beta, keep_num, cong_fallback;
+};
+
+#define SWITCH_THREADS 128
+
+// switch_route's first kernel, probe and decide: one thread per arrival.
+// Thread 0 builds the switch's one LCMP record (every arrival sees the same
+// candidates) into shared memory while every thread probes the cache for
+// its flow, so the record's loads and the probes are in flight together.
+// A lane hits when its slot is valid, holds its key and its cached
+// candidate is installed on a live port (lazy failover); otherwise it takes
+// the fresh pick. A hit refreshes last_seen (every hit on a slot stores the
+// same time); a miss with a fresh decision bids for its slot with
+// atomicMax(win, lane). Nothing else of the cache is written, so every
+// lane probes the cache as it was before the batch.
+__global__ void __launch_bounds__(SWITCH_THREADS) switch_probe_kernel(
+    const SwitchArgs a, int F, const long long* __restrict__ flow_ids,
+    int* __restrict__ choice, unsigned char* __restrict__ is_new, int now_us) {
+  __shared__ uint32_t s_hdr;
+  __shared__ uint32_t s_alive;      // bit k: candidate k installed and alive
+  const int i = blockIdx.x * SWITCH_THREADS + threadIdx.x;
+  uint32_t hv = 0, slot = 0;
+  bool key_ok = false;
+  int out = -1;
+  if (i < F) {
+    const uint32_t fid = (uint32_t)flow_ids[i];
+    hv = fmix32(fid);               // the cache slot and the pick both read it
+    slot = hv % (uint32_t)a.capacity;
+    key_ok = a.valid[slot] != 0 && a.flow_id[slot] == (long long)fid;
+    out = a.out_idx[slot];
+  }
+  if (threadIdx.x == 0) {
+    int key[P_MAX];
+    int m = 0, min_cong = SCORE_MAX + 1;
+    uint32_t alive = 0;
+    // every load issued unconditionally: two dependent rounds (the
+    // candidates, then their ports) for all candidates at once
+    int cc[P_MAX];
+    bool ok[P_MAX];
+#pragma unroll
+    for (int k = 0; k < P_MAX; ++k) {
+      if (k < a.P) {
+        const int port = a.cand_port[k];
+        ok[k] = a.cand_valid[k] && a.port_alive[port];
+        cc[k] = a.c_cong[port];
+        key[k] = a.c_path[k];
+      } else {
+        ok[k] = false;
+        cc[k] = key[k] = 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < P_MAX; ++k) {
+      const int cost = ok[k] ? a.alpha * key[k] + a.beta * cc[k] : COST_INVALID;
+      m += ok[k] ? 1 : 0;
+      min_cong = ok[k] ? min(min_cong, cc[k]) : min_cong;
+      alive |= ok[k] ? 1u << k : 0u;
+      key[k] = cost * P_MAX + k;    // the slot in the low bits breaks ties
+    }
+    s_hdr = lcmp_header(key, m, min_cong, a.keep_num, a.cong_fallback,
+                        POLICY_LCMP);
+    s_alive = alive;
+  }
+  __syncthreads();
+  if (i >= F) return;
+  const int o = max(out, 0);        // flowcache.lookup reads alive[max(out, 0)]
+  const bool hit = key_ok && o < P_MAX && ((s_alive >> o) & 1u);
+  const int fresh = lcmp_pick(s_hdr, hv);
+  choice[i] = hit ? out : fresh;
+  is_new[i] = hit ? 0 : 1;
+  if (hit)
+    a.last_seen[slot] = now_us;
+  else if (fresh >= 0)
+    atomicMax(&a.win[slot], i);
+}
+
+// switch_route's second kernel, commit: the last bidding lane of each slot
+// writes its entry and puts the slot's bid back to -1. A lane reads its
+// slot's bid once; the winner's reset can only turn another lane's read
+// into -1, which matches no lane.
+__global__ void __launch_bounds__(SWITCH_THREADS) switch_commit_kernel(
+    const SwitchArgs a, int F, const long long* __restrict__ flow_ids,
+    const int* __restrict__ choice, const unsigned char* __restrict__ is_new,
+    int now_us) {
+  const int i = blockIdx.x * SWITCH_THREADS + threadIdx.x;
+  if (i >= F) return;
+  const bool bid = is_new[i] != 0;      // both loads in flight together
+  const uint32_t fid = (uint32_t)flow_ids[i];
+  if (!bid) return;
+  const uint32_t slot = fmix32(fid) % (uint32_t)a.capacity;
+  if (a.win[slot] != i) return;
+  a.flow_id[slot] = (long long)fid;
+  a.out_idx[slot] = choice[i];
+  a.last_seen[slot] = now_us;
+  a.valid[slot] = 1;
+  a.win[slot] = -1;
+}
+
+extern "C" int switch_route_launch(const SwitchArgs* args, int F,
+                                   const void* flow_ids, void* choice,
+                                   void* is_new, int now_us, void* stream) {
+  const int blocks = (F + SWITCH_THREADS - 1) / SWITCH_THREADS;
+  switch_probe_kernel<<<blocks, SWITCH_THREADS, 0, (cudaStream_t)stream>>>(
+      *args, F, (const long long*)flow_ids, (int*)choice,
+      (unsigned char*)is_new, now_us);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  switch_commit_kernel<<<blocks, SWITCH_THREADS, 0, (cudaStream_t)stream>>>(
+      *args, F, (const long long*)flow_ids, (const int*)choice,
+      (const unsigned char*)is_new, now_us);
+  return (int)cudaGetLastError();
 }

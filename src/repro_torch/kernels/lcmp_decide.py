@@ -21,6 +21,11 @@ design does about that. Three entries share its decision:
   per pair of the run into the launcher's table (``decide_pairs``), then
   a decision per thread from its pair's record (``decide_pick``).
   ``unpack_records`` reads that table on the host.
+- ``switch_route``: a switch's whole batch of arrivals
+  (``core.switchd.route_batch``: the flow-cache lookup with lazy
+  failover, the refresh, the LCMP decision over the switch's <= 8
+  candidates and the insert) in one call of two kernels, the cache
+  written in place. ``SwitchRoute`` is its launcher for a switch.
 
 ``RouteArrivals`` is the launcher of a run for the last two: it checks
 the fixed tensors once; a route step passes only ``t``, the queues and
@@ -29,9 +34,12 @@ wrappers run the plain versions (``ref.lcmp_decide_ref``,
 ``ref.route_arrivals_ref``, ``ref.decide_ref``); for CUDA tensors
 ``lcmp_decide`` and ``route_arrivals`` launch their kernel or raise, and
 ``decide`` raises: on the card only a run's launcher decides
-(``RouteArrivals.decide``), so a decision never rebuilds one. ``lcmp_decide.launches``,
-``route_arrivals.launches`` and ``decide.launches`` count kernel
-launches only. Flow ids are int64 tensors holding uint32 values (see
+(``RouteArrivals.decide``), so a decision never rebuilds one;
+``switch_route`` runs ``ref.switch_route_ref`` on the CPU and the
+switch's ``SwitchRoute`` on the card. ``lcmp_decide.launches``,
+``route_arrivals.launches``, ``decide.launches`` and
+``switch_route.launches`` count kernel launches only (one a call of
+``decide`` or ``switch_route``). Flow ids are int64 tensors holding uint32 values (see
 ``core.select``); the kernels hash their low 32 bits.
 """
 from __future__ import annotations
@@ -158,15 +166,15 @@ def _need(x: torch.Tensor, name: str, dtype, shape, dev: torch.device) -> None:
             f"on {x.device}{'' if x.is_contiguous() else ' (not contiguous)'}")
 
 
-def _within(x: torch.Tensor, name: str, lo: int, hi: int) -> None:
+def _within(x: torch.Tensor, name: str, lo: int, hi: int,
+            fn: str = "route_arrivals") -> None:
     """Index tables must stay inside what they index (one host sync, at
     set-up): the kernel reads through them unchecked."""
     # read when a launcher is built (step 0 or a rebind) and for pairs
     # other than the run's own, never on a steady step
     # reprolint: ignore[DEV001] set-up read, once per launcher
     if x.numel() and not (lo <= int(x.min()) and int(x.max()) < hi):
-        raise ValueError(f"route_arrivals: {name} holds indices outside "
-                         f"[{lo}, {hi})")
+        raise ValueError(f"{fn}: {name} holds indices outside [{lo}, {hi})")
 
 
 class RouteArrivals:
@@ -431,3 +439,143 @@ def decide(t: int, fid: torch.Tensor, pair: torch.Tensor, st, ar,
 
 
 decide.launches = 0
+
+
+class _SwitchArgs(ctypes.Structure):
+    """``SwitchArgs`` of ``csrc/lcmp_decide.cu``, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "c_path", "cand_port", "cand_valid", "c_cong", "port_alive",
+        "flow_id", "out_idx", "last_seen", "valid", "win")]
+        + [(n, ctypes.c_int) for n in (
+            "capacity", "P", "alpha", "beta", "keep_num", "cong_fallback")])
+
+
+# (name, dtype, length) of the switch tensors ``SwitchRoute`` binds, the
+# lengths P (candidates), N (ports) and C (cache slots)
+_SWITCH_TENSORS = (("c_path", torch.int32, "P"), ("cand_port", torch.int32, "P"),
+                   ("cand_valid", torch.bool, "P"), ("c_cong", torch.int32, "N"),
+                   ("port_alive", torch.bool, "N"))
+_CACHE_TENSORS = (("flow_id", torch.int64), ("out_idx", torch.int32),
+                  ("last_seen", torch.int32), ("valid", torch.bool))
+
+
+class SwitchRoute:
+    """A switch's batches of arrivals on the card, one ``switch_route``
+    call (two kernels) a batch.
+
+    Built once from the switch ``sw`` (a ``core.switchd.SwitchState``)
+    and its selection parameters: the candidates' ``c_path``,
+    ``cand_port`` and ``cand_valid``, the ports' ``c_cong`` and
+    ``port_alive`` and the four tensors of its flow cache, checked here
+    with the candidates' port range (one host read), and a (C,) int32
+    scratch of slot bids held at -1 between batches. A call passes the
+    batch's flow ids and the time; the kernels write the cache IN PLACE,
+    so the switch must keep these tensors (``core.switchd`` updates them
+    in place on the card).
+    """
+
+    def __init__(self, sw, params: SelectParams):
+        dev = sw.c_path.device
+        if dev.type != "cuda":
+            raise ValueError(f"switch_route: unsupported device {dev}")
+        P, N = sw.c_path.shape[0], sw.port_alive.shape[0]
+        C = sw.cache.flow_id.shape[0]
+        if not 1 <= P <= P_MAX:
+            raise ValueError(f"switch_route: the kernel takes 1 <= P <= "
+                             f"{P_MAX} candidates, got P={P}")
+        if not (1 <= C < 1 << 31 and params.keep_num >= 1):
+            raise ValueError("switch_route: needs 1 <= capacity < 2**31 and "
+                             "keep_num >= 1")
+        lengths = {"P": P, "N": N}
+        tensors = [(name, getattr(sw, name), dtype, (lengths[n],))
+                   for name, dtype, n in _SWITCH_TENSORS] + [
+            (f"cache.{name}", getattr(sw.cache, name), dtype, (C,))
+            for name, dtype in _CACHE_TENSORS]
+        for name, x, dtype, shape in tensors:
+            if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
+                    or not x.is_contiguous():
+                raise ValueError(
+                    f"switch_route: {name} must be a contiguous {dtype} "
+                    f"tensor of shape {shape} on {dev}, got {x.dtype} "
+                    f"{tuple(x.shape)} on {x.device}")
+        _within(sw.cand_port, "cand_port", 0, N, "switch_route")
+        self.win = torch.full((C,), -1, dtype=torch.int32, device=dev)
+        self.args = _SwitchArgs(
+            *[x.data_ptr() for _, x, _, _ in tensors], self.win.data_ptr(),
+            C, P, params.alpha, params.beta, params.keep_num,
+            params.cong_fallback)
+        # the tensors whose pointers the struct holds stay alive with it
+        self.bound = tuple(x for _, x, _, _ in tensors)
+        self.params, self.dev_index = params, dev.index
+        self.args_ref = ctypes.byref(self.args)
+        self.launcher = build.load("lcmp_decide").switch_route_launch
+
+    def bound_to(self, sw) -> bool:
+        """Whether ``sw`` keeps the tensors the launcher was built on."""
+        b, c = self.bound, sw.cache
+        return (sw.c_path is b[0] and sw.cand_port is b[1]
+                and sw.cand_valid is b[2] and sw.c_cong is b[3]
+                and sw.port_alive is b[4] and c.flow_id is b[5]
+                and c.out_idx is b[6] and c.last_seen is b[7]
+                and c.valid is b[8])
+
+    def __call__(self, flow_ids: torch.Tensor, now_us: int, params: SelectParams):
+        """Route a batch: ``flow_ids`` (F,) int64 holding uint32 values.
+        Returns ``(choice, is_new)``, (F,) int32 and (F,) bool."""
+        if (flow_ids.dtype is not torch.int64 or flow_ids.dim() != 1
+                or not flow_ids.is_contiguous()
+                or flow_ids.get_device() != self.dev_index):
+            raise ValueError(
+                f"switch_route: flow_ids must be a contiguous 1-D int64 tensor "
+                f"on cuda:{self.dev_index}, got {flow_ids.dtype} "
+                f"{tuple(flow_ids.shape)} on {flow_ids.device}")
+        if params is not self.params and params != self.params:
+            raise ValueError(f"switch_route: the switch's launcher was built "
+                             f"with {self.params}, not {params}")
+        if not -(1 << 31) <= now_us < 1 << 31:
+            raise ValueError(f"switch_route: now_us {now_us} overflows int32")
+        F = flow_ids.shape[0]
+        choice = torch.empty((F,), dtype=torch.int32, device=flow_ids.device)
+        is_new = torch.empty((F,), dtype=torch.bool, device=flow_ids.device)
+        if F == 0:                      # nothing to route: no launch
+            return choice, is_new
+        if torch.cuda.current_device() == self.dev_index:
+            err = self.launcher(self.args_ref, F, flow_ids.data_ptr(),
+                                choice.data_ptr(), is_new.data_ptr(), now_us,
+                                build.raw_stream(self.dev_index))
+        else:
+            with torch.cuda.device(self.dev_index):
+                err = self.launcher(self.args_ref, F, flow_ids.data_ptr(),
+                                    choice.data_ptr(), is_new.data_ptr(),
+                                    now_us, build.raw_stream(self.dev_index))
+        build.check(err, "switch_route")
+        switch_route.launches += 1
+        return choice, is_new
+
+
+def switch_route(sw, flow_ids: torch.Tensor, now_us: int,
+                 params: SelectParams = SelectParams()):
+    """A batch of arrivals at switch ``sw`` (a ``core.switchd.SwitchState``):
+    ``flow_ids`` (F,) int64. Returns ``(cache', choice, is_new)``:
+    choice (F,) int32 candidate indices (-1: none valid), is_new (F,)
+    bool.
+
+    On CUDA one call of the switch's launcher (``sw.route``, built by
+    ``make_switch``) writes ``sw.cache`` IN PLACE and returns it; on the
+    CPU the plain version returns a new cache.
+    """
+    dev = flow_ids.device
+    if dev.type == "cpu":
+        return ref.switch_route_ref(sw, flow_ids, now_us, params)
+    if dev.type != "cuda":
+        raise ValueError(f"switch_route: unsupported device {dev}")
+    route = sw.route
+    if route is None or not route.bound_to(sw):
+        raise ValueError("switch_route: a switch on the card routes through "
+                         "the launcher make_switch bound to its candidates, "
+                         "ports and cache, which it updates in place")
+    choice, is_new = route(flow_ids, int(now_us), params)
+    return sw.cache, choice, is_new
+
+
+switch_route.launches = 0

@@ -11,6 +11,14 @@ phases and ``decide`` its failover and re-decision decision;
 the card (``netsim.fluid.make_step`` builds one of each). On the card
 ``decide`` launches only through a run's ``RouteArrivals.decide``; its
 wrapper here is the plain version and raises for CUDA tensors.
+
+``switch_monitor`` and ``switch_route`` are the switch's monitor pass
+and batch of arrivals (``core.switchd``), each taking the switch:
+``SwitchMonitor`` (one ``cong_update`` launch a tick, counted as
+``cong_update``) and ``SwitchRoute`` (one ``switch_route`` call of two
+kernels a batch) are their launchers, which ``core.switchd.make_switch``
+builds once per switch on the card. No path launches the standalone
+``lcmp_decide`` entry; it stays for the TPU kernel's contract.
 """
 from __future__ import annotations
 
@@ -18,9 +26,11 @@ from repro_torch.core.cong import CongParams
 from repro_torch.core.select import SelectParams
 from repro_torch.kernels import cong_update as _cong
 from repro_torch.kernels import lcmp_decide as _decide
-from repro_torch.kernels.cong_update import MonitorTick, monitor_tick
-from repro_torch.kernels.lcmp_decide import (RouteArrivals, decide,
-                                             route_arrivals)
+from repro_torch.kernels.cong_update import (MonitorTick, SwitchMonitor,
+                                             monitor_tick, switch_monitor)
+from repro_torch.kernels.lcmp_decide import (RouteArrivals, SwitchRoute,
+                                             decide, route_arrivals,
+                                             switch_route)
 from repro_torch.kernels.qsr_int8 import qsr_dequant, qsr_int8
 
 
@@ -39,7 +49,7 @@ def cong_update(state, queue_cells, now_us, tables, params=None,
 _COUNTED = {"cong_update": _cong.cong_update,
             "lcmp_decide": _decide.lcmp_decide,
             "monitor_tick": monitor_tick, "route_arrivals": route_arrivals,
-            "decide": decide,
+            "decide": decide, "switch_route": switch_route,
             "qsr_int8": qsr_int8, "qsr_dequant": qsr_dequant}
 
 

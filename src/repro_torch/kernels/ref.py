@@ -15,7 +15,10 @@ they share. ``decide_records_ref`` and ``decide_pick_ref`` are the plain
 versions of the card's two ``decide`` kernels, the per-pair and the
 per-decision half of every law, which compose to ``decide_ref``.
 They take the engine's ``SimState`` and ``SimArrays`` by field name and
-use the ring width of ``hist_c``.
+use the ring width of ``hist_c``. ``switch_monitor_ref`` and
+``switch_route_ref`` are the plain versions of the switch's monitor pass
+and batch of arrivals (``core.switchd``), which take the switch's
+``SwitchState`` by field name.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.core import baselines as bl
 from repro_torch.core import cong as congmod
+from repro_torch.core import flowcache as fc
 from repro_torch.core import select as selmod
 from repro_torch.core.cong import CongParams, CongState
 from repro_torch.core.select import SelectParams
@@ -51,6 +55,37 @@ def cong_update_ref(state: CongState, queue_cells: torch.Tensor, now_us: int,
         # reprolint: ignore[RNG001] the caller passes slot = t % HIST
         hist_c[:, slot] = c_cong
     return st, c_cong
+
+
+def switch_monitor_ref(sw, queue_cells: torch.Tensor, now_us: int,
+                       params: CongParams = CongParams()):
+    """The switch's monitor pass: ``cong_update_ref`` over the registers
+    of switch ``sw``. Returns ``(cong', c_cong)``."""
+    return cong_update_ref(sw.cong, queue_cells, now_us, sw.tables, params)
+
+
+def switch_route_ref(sw, flow_ids: torch.Tensor, now_us: int,
+                     params: SelectParams = SelectParams()):
+    """A batch of arrivals at switch ``sw``: established flows (cache hit,
+    live egress) keep their candidate, every other flow takes the fresh
+    LCMP decision over the switch's candidates and is inserted into the
+    cache (``core.flowcache``'s collision rule). ``flow_ids`` (F,) int64.
+    Returns ``(cache', choice, is_new)``: a new cache, (F,) int32
+    candidate indices (-1: none valid) and (F,) bool."""
+    # the cache stores candidate indices: a candidate is "alive" (and
+    # valid for the decision) iff it is installed and its port is alive
+    cand_alive = sw.port_alive[sw.cand_port] & sw.cand_valid
+    hit, cached_idx, slot = fc.lookup(sw.cache, flow_ids, cand_alive)
+    cache = fc.refresh(sw.cache, slot, hit, now_us)
+
+    F, P = flow_ids.shape[0], sw.c_path.shape[0]
+    fresh_idx = lcmp_decide_ref(
+        flow_ids, sw.c_path.expand(F, P).contiguous(),
+        sw.c_cong[sw.cand_port].expand(F, P).contiguous(),
+        cand_alive.expand(F, P).contiguous(), params)
+    choice = torch.where(hit, cached_idx, fresh_idx)
+    cache = fc.insert(cache, flow_ids, fresh_idx, now_us, ~hit)
+    return cache, choice, ~hit
 
 
 def monitor_tick_ref(state: CongState, q_bytes: torch.Tensor, now_us: int,

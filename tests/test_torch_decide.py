@@ -307,7 +307,8 @@ def _c_struct(name: str) -> list:
 
 @pytest.mark.parametrize("struct, mirror", [
     ("RouteArgs", lcmp_decide._RouteArgs),
-    ("StepTensors", lcmp_decide._StepTensors)])
+    ("StepTensors", lcmp_decide._StepTensors),
+    ("SwitchArgs", lcmp_decide._SwitchArgs)])
 def test_ctypes_mirrors_match_the_source(struct, mirror):
     src = _c_struct(struct)
     assert [n for n, _ in src] == [n for n, _ in mirror._fields_]

@@ -140,7 +140,8 @@ def test_lcmp_decide_wide_sets_run_the_plain_version_on_cpu(jref):
     _eq(ops.lcmp_decide(*_torch(*inp)), want)
     assert ops.counts() == {"cong_update": 0, "lcmp_decide": 0,
                             "monitor_tick": 0, "route_arrivals": 0,
-                            "decide": 0, "qsr_int8": 0, "qsr_dequant": 0}
+                            "decide": 0, "switch_route": 0,
+                            "qsr_int8": 0, "qsr_dequant": 0}
 
 
 def test_wrappers_refuse_other_devices():

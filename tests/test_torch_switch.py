@@ -4,13 +4,17 @@
 routing preferences, the bounded cache, the storage budget), then
 ``monitor_tick`` and ``route_batch`` against the JAX package's on the
 same inputs over many ticks (integers exact; batches whose cache slots
-are distinct), and the port's one rule for batch collisions, pinned.
+are distinct), and the port's one rule for batch collisions, pinned:
+``fc.insert`` alone, and whole batches of ``route_batch`` (hits and
+inserts on one slot, a dead cached egress, every candidate dead) against
+the rule written as a loop.
 
 The ``cuda``-marked tests hold the card against the plain versions (the
-CUDA ``cong_update`` and ``lcmp_decide`` entries under ``switchd``, the
-collision rule) and skip without a card; the JAX package is imported by
-the ``jref`` fixture only, so they also run on a machine without JAX
-(``pytest -m cuda``). About 10 s on one worker.
+switch's launchers under ``switchd``: ``cong_update`` and the two
+``switch_route`` kernels; the collision rule) and skip without a card;
+the JAX package is imported by the ``jref`` fixture only, so they also
+run on a machine without JAX (``pytest -m cuda``). About 10 s on one
+worker.
 """
 import dataclasses
 import types
@@ -22,7 +26,7 @@ import torch
 from repro_torch.core import flowcache as fc
 from repro_torch.core import switchd, tables
 from repro_torch.core.select import fmix32
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 # 6 candidate paths (Fig. 1): {200,200,100,100,40,40} Gbps x {5,250} ms
 DELAYS = [5_000, 250_000, 5_000, 250_000, 5_000, 250_000]
@@ -260,6 +264,90 @@ def test_refresh_touches_every_slot_a_hit_maps_to():
     assert got.last_seen.tolist() == [0, 9, 0, 0, 0, 9, 0, 0]
 
 
+def _expected_batch(sw, ids, now):
+    """``route_batch``'s rule written as a loop over lanes: each lane
+    probes the cache as it was before the batch; a hit (valid slot, same
+    key, cached candidate installed on a live port) keeps its candidate
+    and refreshes its slot; every other lane takes the fresh decision
+    (``ref.lcmp_decide_ref`` over the switch's candidates), and of those
+    with a decision the last lane of a slot writes it. Returns
+    ``(choice, is_new, (flow_id, out_idx, last_seen, valid), hit slots,
+    written slots, lanes whose cached egress died)``."""
+    c = sw.cache
+    fid, oi = c.flow_id.clone(), c.out_idx.clone()
+    seen, valid = c.last_seen.clone(), c.valid.clone()
+    alive = (sw.port_alive[sw.cand_port] & sw.cand_valid).tolist()
+    F, P = len(ids), len(alive)
+    fresh = ref.lcmp_decide_ref(
+        ids, sw.c_path.expand(F, P).contiguous(),
+        sw.c_cong[sw.cand_port].expand(F, P).contiguous(),
+        torch.tensor(alive).expand(F, P).contiguous()).tolist()
+    slots = (fmix32(ids) % c.capacity).tolist()
+    choice, is_new, hits, writes, died = [], [], set(), {}, 0
+    for lane, s in enumerate(slots):
+        key, out = int(ids[lane]) & 0xFFFFFFFF, int(c.out_idx[s])
+        cached = bool(c.valid[s]) and int(c.flow_id[s]) == key
+        died += cached and not alive[max(out, 0)]
+        if cached and alive[max(out, 0)]:
+            choice.append(out)
+            is_new.append(False)
+            seen[s] = now
+            hits.add(s)
+            continue
+        choice.append(fresh[lane])
+        is_new.append(True)
+        if fresh[lane] >= 0:
+            writes[s] = (key, fresh[lane])
+    for s, (key, out) in writes.items():
+        fid[s], oi[s], seen[s], valid[s] = key, out, now, True
+    return (torch.tensor(choice, dtype=torch.int32), torch.tensor(is_new),
+            (fid, oi, seen, valid), hits, set(writes), died)
+
+
+@pytest.mark.parametrize("case", ["hit_and_insert_on_one_slot",
+                                  "dead_egress", "all_dead"])
+def test_route_batch_collisions_follow_the_loop_rule(case):
+    """Two batches over an 8-slot cache, each held to the loop rule:
+    the first fills the cache, the second brings established, repeated
+    and new ids after ``case``'s change of liveness."""
+    rng = np.random.default_rng(11)
+    sw = _mk(cache_capacity=8)
+    first = _ids(rng.integers(0, 2**32, 24, dtype=np.uint64)
+                 .astype(np.uint32))
+    second = torch.cat([first[::2], first[:3], _ids(
+        rng.integers(0, 2**32, 20, dtype=np.uint64).astype(np.uint32))])
+    for batch, (ids, now) in enumerate(((first, 100), (second, 200))):
+        if batch == 1 and case == "dead_egress":
+            cached = sw.cache.out_idx[sw.cache.valid]
+            alive = np.ones(6, bool)
+            alive[int(sw.cand_port[int(torch.mode(cached).values)])] = False
+            sw = switchd.set_port_liveness(sw, alive)
+        if batch == 1 and case == "all_dead":
+            sw = switchd.set_port_liveness(sw, np.zeros(6, bool))
+        choice, new, cache, hits, writes, died = _expected_batch(sw, ids, now)
+        sw, got_choice, got_new = switchd.route_batch(sw, ids, now)
+        assert torch.equal(got_choice, choice) and torch.equal(got_new, new)
+        for want, got in zip(cache, (sw.cache.flow_id, sw.cache.out_idx,
+                                     sw.cache.last_seen, sw.cache.valid)):
+            assert torch.equal(got, want)
+    # the second batch holds what the case names
+    if case == "hit_and_insert_on_one_slot":
+        assert hits & writes
+    elif case == "dead_egress":
+        assert hits and writes and died
+    else:
+        assert (choice == -1).all() and bool(new.all()) and not writes
+
+
+def test_switch_entries_refuse_other_devices():
+    sw = _mk()
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.switch_route(sw, torch.arange(4, device="meta"), 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.switch_monitor(sw, torch.zeros(6, dtype=torch.int32,
+                                           device="meta"), 0)
+
+
 # ------------------------------------------------------- on the card (cuda)
 @pytest.fixture
 def cuda():
@@ -284,8 +372,9 @@ def test_cuda_collision_rule_equals_the_cpu(cuda):
 
 @pytest.mark.cuda
 def test_cuda_switch_equals_the_cpu(cuda):
-    """The card's switch (the CUDA cong_update and lcmp_decide entries)
-    against the CPU's plain versions, tick by tick, bit for bit."""
+    """The card's switch (its launchers: the CUDA cong_update entry and
+    the two switch_route kernels) against the CPU's plain versions, tick
+    by tick, bit for bit."""
     rng = np.random.default_rng(3)
     ports, cands = 48, 8
     rates = [int(x) for x in rng.choice([40, 100, 200, 400], ports)]
@@ -312,13 +401,41 @@ def test_cuda_switch_equals_the_cpu(cuda):
         for f in dataclasses.fields(sws["cpu"].cache):
             assert torch.equal(getattr(sws["cpu"].cache, f.name),
                                getattr(sws[cuda].cache, f.name).cpu())
-    assert ops.counts()["cong_update"] == ops.counts()["lcmp_decide"] == 30
+    counts = ops.counts()
+    assert counts["switch_route"] == counts["cong_update"] == 30
+    assert counts["lcmp_decide"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_switch_route_equals_the_plain_version(cuda):
+    """4,096 lanes over 64 slots, after a first batch: hits (the first
+    batch's last lanes won its slots), misses, repeated ids and many
+    lanes bidding for each slot; the card's in-place cache against the
+    plain version's new one."""
+    rng = np.random.default_rng(5)
+    sws = {d: _mk(cache_capacity=64, dev=d) for d in ("cpu", cuda)}
+    first = _ids(rng.integers(0, 2**32, 4096, dtype=np.uint64)
+                 .astype(np.uint32))
+    second = torch.cat([first[2048:], _ids(
+        rng.integers(0, 2**32, 2048, dtype=np.uint64).astype(np.uint32))])
+    before = ops.counts()["switch_route"]
+    for ids, now in ((first, 100), (second, 200)):
+        res = {}
+        for d in sws:
+            sws[d], idx, new = switchd.route_batch(sws[d], ids.to(d), now)
+            res[d] = (idx, new)
+        for a, b in zip(res["cpu"], res[cuda]):
+            assert torch.equal(a, b.cpu())
+        for f in dataclasses.fields(sws["cpu"].cache):
+            assert torch.equal(getattr(sws["cpu"].cache, f.name),
+                               getattr(sws[cuda].cache, f.name).cpu())
+    assert 0 < int(res["cpu"][1].sum()) < 4096       # hits and misses
+    assert ops.counts()["switch_route"] == before + 2
 
 
 @pytest.mark.cuda
 def test_cuda_switch_refuses_wide_candidate_sets(cuda):
     tb = tables.bootstrap_tables([100] * 9, device=cuda)
-    sw = switchd.make_switch(tb, [5_000] * 9, [100] * 9, list(range(9)),
-                             num_ports=9, device=cuda)
     with pytest.raises(ValueError, match="P <= 8"):
-        switchd.route_batch(sw, torch.arange(4, device=cuda), 0)
+        switchd.make_switch(tb, [5_000] * 9, [100] * 9, list(range(9)),
+                            num_ports=9, device=cuda)
