@@ -203,6 +203,20 @@ the script exits non-zero and prints no result line. Phases:
    within ``DRYRUN_MEM_BAND`` of the real step's
    ``max_memory_allocated`` increase, the step time and the share of
    989 TFLOP/s it reaches;
+22. examples: the port's counterparts of the reference's three examples
+   (``EXAMPLES``), started together, each a process of its own on the
+   card (``--device cuda:0``), each of which must exit 0:
+   ``torch_routing_sim`` (its 16 sweep cells finite, the testbed8 cells
+   within the bands of ``SWEEP_REFERENCE``'s fig5 cells at load 0.3, the
+   scenario cells above ``COMPLETION_FLOOR``, the herd histogram equal to
+   the CPU's, and its own launch counts, read in its process: one
+   ``monitor_tick`` and one ``route_arrivals`` a step per static group,
+   ``expected_decides``, no other entry), ``torch_multipod_grad_routes``
+   (2 Gloo ranks sharing the card: the reduce equal across pods and to
+   their f32 mean, the bindings with every route alive and with route 0
+   dead equal to the CPU's, and different) and ``torch_quickstart`` (the
+   train launcher to step 30, resumed from step 30 to 40, then serve);
+   each example's wall seconds from the common start;
 then the ``kernels`` summary line and the result line. Phase 4 also
 holds ``qsr_int8`` and ``qsr_dequant`` against their plain versions, bit
 for bit, at 1024, 2^16 and 2^24 elements and at the train phase's two
@@ -213,15 +227,20 @@ flows x 8 candidates).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import importlib
 import inspect
+import io
 import itertools
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from types import SimpleNamespace
@@ -481,6 +500,14 @@ COMPLETION_FLOOR = 0.99
 # ticks 100 us apart, GC every 50 ticks at a 2 ms idle timeout
 SWITCH = dict(ports=48, cands=8, capacity=1 << 16, ticks=200, batch=4096,
               dead_tick=100, gc_every=50, idle_timeout_us=2_000, seed=18)
+# phase examples: the port's counterparts of the reference's three
+# examples, started together as processes on the card
+EXAMPLES = ("torch_routing_sim", "torch_multipod_grad_routes",
+            "torch_quickstart")
+EXAMPLE_TIMEOUT_S = 300
+# the ticks of a run of phase switch at which candidate_costs is held to
+# the switch's kept state (the port dies at tick 100)
+SWITCH_COST_TICKS = (0, 1, 50, 99, 100, 101, 150, 199)
 # every law of the port's route and decide entries (engine.POLICY_CODES
 # but the sweep), and the laws that read the delayed congestion view
 LAWS = ("lcmp", "lcmp_w", "ecmp", "ucmp", "wcmp", "redte", "fatpaths", "amp",
@@ -767,9 +794,7 @@ def phase_lint(dev) -> dict:
         from repro_torch.analysis import run_checks
         rep = run_checks(HERE, checks=["syncs"])
         dev_lines = {(f.path, f.line) for f in rep.findings + rep.suppressed}
-        sys.path.insert(0, os.path.join(HERE, "examples"))
-        from torch_decode_sync import check as decode_sync
-        decode = decode_sync(HERE)["runs"]
+        decode = example_module("torch_decode_sync").check(HERE)["runs"]
         scalars_equal = filled_scalars_equal(dev)
         stdout, stderr = proc.communicate(timeout=300)
     finally:
@@ -2583,12 +2608,14 @@ def switch_inputs(dev):
             torch.tensor(np.stack(flows), device=dev))
 
 
-def switch_run(dev, inputs, timed: bool = False) -> dict:
+def switch_run(dev, inputs, timed: bool = False, probe=None) -> dict:
     """Phase switch's 200 ticks through ``core.switchd``; returns the
     choices, new-flow flags, final switch and (``timed``) the synchronized
     host µs of each ``route_batch``. A timed run makes each call of ticks
     1.. under ``torch.cuda.set_sync_debug_mode("error")`` (tick 0 follows
-    ``make_switch``, whose launcher reads the candidates' ports back)."""
+    ``make_switch``, whose launcher reads the candidates' ports back).
+    ``probe(tick, sw)``, where given, sees the switch after each tick's
+    monitor pass."""
     from repro_torch.core import switchd
     tb, delays, caps, cport, queues, flows = inputs
     params = switchd.SwitchParams(idle_timeout_us=SWITCH["idle_timeout_us"])
@@ -2611,6 +2638,8 @@ def switch_run(dev, inputs, timed: bool = False) -> dict:
             alive[dead] = False
             sw = call(tick, switchd.set_port_liveness, sw, alive)
         sw = call(tick, switchd.monitor_tick, sw, queues[tick], now, params)
+        if probe is not None:
+            probe(tick, sw)
         if timed:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2659,6 +2688,7 @@ def phase_switch(dev) -> dict:
     finally:
         ops.switch_monitor, ops.switch_route = kernels
     a, b = got["switch"], want["switch"]
+    costs = candidate_costs_check(dev, inputs)
     same = {"choice": torch.equal(got["choice"], want["choice"]),
             "is_new": torch.equal(got["is_new"], want["is_new"]),
             **same_switch(a, b)}
@@ -2709,7 +2739,7 @@ def phase_switch(dev) -> dict:
            "no_sync_ticks": f"1-{SWITCH['ticks'] - 1}",
            "collision_batch_equals_cpu": collide,
            "collision_route_equals_cpu": collide_route,
-           "wide_set_refused": refused}
+           "wide_set_refused": refused, "candidate_costs": costs}
     emit(out)
     require(all(same.values()), "switch: the card's run equals the plain "
             "run bit for bit")
@@ -2721,7 +2751,36 @@ def phase_switch(dev) -> dict:
     require(collide and collide_route,
             "switch: a colliding batch's cache equals the CPU's")
     require(refused, "switch: more than 8 candidates refused on the card")
+    require(all(costs["equal"].values()) and costs["dead_invalid"],
+            "switch: candidate_costs equals the kept c_path, c_cong and "
+            "liveness at every probed tick")
     return out
+
+
+def candidate_costs_check(dev, inputs) -> dict:
+    """``switchd.candidate_costs`` (C_cong recomputed from the registers
+    with plain torch ops) against what the switch keeps (``c_path``, the
+    ``c_cong`` that the ``cong_update`` kernel writes, the candidates'
+    liveness) at ``SWITCH_COST_TICKS`` of phase switch's run through its
+    launchers: a run of its own after the timed one (outside its
+    no-plain-call and sync-debug region, its launches read no count),
+    the port death included."""
+    from repro_torch.core import switchd
+    equal, dead_invalid = {}, True
+
+    def probe(tick, sw):
+        nonlocal dead_invalid
+        if tick not in SWITCH_COST_TICKS:
+            return
+        got = switchd.candidate_costs(sw)
+        kept = (sw.c_path, sw.c_cong[sw.cand_port],
+                sw.cand_valid & sw.port_alive[sw.cand_port])
+        equal[tick] = all(torch.equal(g, k) for g, k in zip(got, kept))
+        if tick >= SWITCH["dead_tick"]:
+            dead_invalid &= int(got[2].sum()) == SWITCH["cands"] - 1
+    switch_run(dev, inputs, probe=probe)
+    return {"ticks": list(SWITCH_COST_TICKS), "equal": equal,
+            "dead_invalid": dead_invalid}
 
 
 def phase_profile(dev, steps: int = 100) -> list:
@@ -3719,8 +3778,6 @@ def phase_serve(dev) -> dict:
 def launch_quiet(fn, *a, **kw):
     """Run a launcher call with its printed lines captured -> (result or
     the SystemExit, the printed text)."""
-    import contextlib
-    import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         try:
@@ -3736,7 +3793,6 @@ def checkpoint_mechanics(dev, arch: str) -> dict:
     to the saved one bit for bit, the optimizer count 4, step 3's loss
     the uninterrupted run's within rtol 1e-3); a SIGTERM inside step 3
     leaves its emergency checkpoint."""
-    import tempfile
     from unittest import mock
 
     from repro_torch import configs
@@ -3941,6 +3997,183 @@ def phase_dryrun(dev, smi: str) -> dict:
     return out
 
 
+def example_module(name: str):
+    """``examples/<name>.py`` of this checkout, imported (the examples'
+    entry points run under a ``__main__`` guard)."""
+    path = os.path.join(HERE, "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def run_examples(dev) -> dict:
+    """The three examples of ``EXAMPLES`` started together, each in a
+    process (and session) of its own on ``dev``, their output in files;
+    each example's exit code, wall seconds from the common start and
+    output. One past ``EXAMPLE_TIMEOUT_S`` is killed with its children."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        t0 = time.perf_counter()
+        for name in EXAMPLES:
+            files = [open(os.path.join(tmp, f"{name}.{k}"), "w+")
+                     for k in ("out", "err")]
+            procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "examples", f"{name}.py"),
+                 "--device", str(dev)], cwd=HERE, env=env, stdout=files[0],
+                stderr=files[1], start_new_session=True), files)
+        ends = {}
+        while len(ends) < len(procs):
+            for name, (proc, _) in procs.items():
+                if name in ends:
+                    continue
+                over = time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S
+                if proc.poll() is None and over:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+                if proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.2)
+        for name, (proc, files) in procs.items():
+            text = []
+            for f in files:
+                f.seek(0)
+                text.append(f.read())
+                f.close()
+            out[name] = {"exit": proc.returncode, "wall_s": ends[name],
+                         "stdout": text[0], "stderr": text[1]}
+    return out
+
+
+def parse_routing_sim(text: str) -> dict:
+    """``torch_routing_sim``'s printed cells, herd histogram and launches."""
+    cells = [(float(a), float(b)) for a, b in
+             re.findall(r"p50=\s*(\S+)\s+p99=\s*(\S+)", text)]
+    testbed = {pol: (float(a), float(b), int(c)) for pol, a, b, c in re.findall(
+        r"^\s+(\w+)\s+p50=\s*(\S+)\s+p99=\s*(\S+)\s+\(completed (\d+)\)",
+        text, re.M)}
+    done = [(int(a), int(b)) for a, b in re.findall(r"completed (\d+)/(\d+)",
+                                                    text)]
+    herd = re.search(r"choice histogram: \[([\d\s]+)\]", text)
+    launches = re.search(r"^kernel launches: (\{.*\})$", text, re.M)
+    return {"cells": cells, "testbed": testbed, "completed": done,
+            "herd": [int(x) for x in herd.group(1).split()] if herd else None,
+            "launches": json.loads(launches.group(1)) if launches else None}
+
+
+def parse_multipod(text: str) -> dict:
+    """``torch_multipod_grad_routes``' bindings and reduce verdict."""
+    def binding(label):
+        m = re.search(rf"route binding \({re.escape(label)}\): \[([-\d\s]+)\]",
+                      text)
+        return [int(x) for x in m.group(1).split()] if m else None
+    return {"alive": binding("all alive"), "dead": binding("route0 dead"),
+            "reduced_ok": "reduced ok: True" in text,
+            "ok_line": "multipod_grad_routes OK" in text}
+
+
+def parse_quickstart(text: str) -> dict:
+    """``torch_quickstart``'s resume step, logged steps and serve line."""
+    resume = re.search(r"\[resume\] step (\d+) from", text)
+    steps = [int(x) for x in re.findall(r"^step (\d+): loss=", text, re.M)]
+    return {"resumed_from": int(resume.group(1)) if resume else None,
+            "logged_steps": steps,
+            "served": re.search(r"^generated \(2, 16\)", text, re.M) is not None,
+            "ok_line": "quickstart OK" in text}
+
+
+def example_launches(specs) -> dict:
+    """The launches a ``run_sweep`` of ``specs`` makes: one
+    ``monitor_tick`` and one ``route_arrivals`` a step per static group,
+    ``expected_decides`` per group, no other entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import sweep
+    want = dict.fromkeys(ops.counts(), 0)
+    for idxs in sweep._static_groups(specs).values():
+        _, cfg = sweep.group_config([specs[i] for i in idxs])
+        want["monitor_tick"] += cfg.num_steps
+        want["route_arrivals"] += cfg.num_steps
+        want["decide"] += expected_decides(cfg)
+    return want
+
+
+def phase_examples(dev) -> dict:
+    """Phase examples (see the module docstring)."""
+    from repro_torch.dist import lcmp_collectives as lc
+    sim = example_module("torch_routing_sim")
+    multipod = example_module("torch_multipod_grad_routes")
+    t0 = time.perf_counter()
+    ran = run_examples(dev)
+    wall = time.perf_counter() - t0
+    routing = parse_routing_sim(ran["torch_routing_sim"]["stdout"])
+    pods = parse_multipod(ran["torch_multipod_grad_routes"]["stdout"])
+    quick = parse_quickstart(ran["torch_quickstart"]["stdout"])
+    # what the CPU gives: the herd histogram, the route bindings
+    with contextlib.redirect_stdout(io.StringIO()):
+        herd_cpu = [int(x) for x in sim.herd("cpu")]
+    lc._TELEMETRY.reset()
+    ids = multipod.bucket_ids()
+    bind_cpu = {"alive": [int(x) for x in lc.schedule_buckets(ids)]}
+    lc.set_route_liveness([False, True, True])
+    bind_cpu["dead"] = [int(x) for x in lc.schedule_buckets(ids)]
+    lc._TELEMETRY.reset()
+    blocks = (sim.testbed_specs(), sim.scenario_specs(), sim.staleness_specs())
+    per_block = [example_launches(specs) for specs in blocks]
+    want_launches = {k: sum(b[k] for b in per_block) for k in per_block[0]}
+    testbed = {}
+    for pol, (p50, p99, done) in routing["testbed"].items():
+        r50, r99, rdone, roffered = SWEEP_REFERENCE[f"fig5/0.3/{pol}"]
+        testbed[pol] = {"p50": p50, "p99": p99, "completed": done,
+                        "reference": [r50, r99, rdone, roffered],
+                        "in_band": (within(p50, r50, P50_BAND)
+                                    and within(p99, r99, P99_BAND)
+                                    and abs(done - rdone)
+                                    <= COMPLETED_BAND * roffered)}
+    out = {"phase": "examples", "device": str(dev), "wall_s": wall,
+           "started_together": True,
+           "examples": {name: {"exit": r["exit"], "wall_s": r["wall_s"]}
+                        for name, r in ran.items()},
+           "routing_sim": {"cells": len(routing["cells"]), "testbed": testbed,
+                           "completed": routing["completed"],
+                           "herd": routing["herd"], "herd_cpu": herd_cpu,
+                           "launches": routing["launches"],
+                           "launches_expected": want_launches},
+           "multipod": {**pods, "cpu": bind_cpu},
+           "quickstart": quick}
+    emit(out)
+    for name, r in ran.items():
+        if r["exit"] != 0:
+            print(f"--- {name} (exit {r['exit']}) stderr:\n{r['stderr'][-4000:]}",
+                  file=sys.stderr)
+        require(r["exit"] == 0, f"examples: {name} exits 0 on {dev}")
+    require(len(routing["cells"]) == sum(map(len, blocks))
+            and all(math.isfinite(a) and math.isfinite(b)
+                    for a, b in routing["cells"]),
+            "examples: every routing_sim cell completes with finite p50, p99")
+    require(len(testbed) == len(sim.TESTBED_POLICIES)
+            and all(t["in_band"] for t in testbed.values()),
+            "examples: routing_sim's testbed8 cells within the bands of the "
+            "reference's fig5 cells at load 0.3")
+    require(all(COMPLETION_FLOOR * off <= done <= off
+                for done, off in routing["completed"]),
+            "examples: the scenario cells complete their flows")
+    require(routing["herd"] == herd_cpu, "examples: the herd histogram "
+            "equals the CPU's")
+    require(routing["launches"] == want_launches, "examples: routing_sim "
+            "launches one monitor_tick and one route_arrivals a step per "
+            "group, its decides, no other entry")
+    require(pods["reduced_ok"] and pods["ok_line"], "examples: the multipod "
+            "reduce is equal across pods and to the pods' f32 mean")
+    require(pods["alive"] == bind_cpu["alive"] and pods["dead"]
+            == bind_cpu["dead"] and pods["alive"] != pods["dead"],
+            "examples: the route bindings equal the CPU's, and route 0's "
+            "death moves them")
+    require(quick["resumed_from"] == 30 and quick["logged_steps"][-1:] == [40]
+            and quick["served"] and quick["ok_line"],
+            "examples: the quickstart resumes from step 30 to 40 and serves")
+    return {**out, "launches": routing["launches"]}
+
+
 def kernel_summary(checks: dict, runs: dict, train: dict,
                    sweeps: dict, dist: dict) -> dict:
     """The ``kernels`` line: every TPU kernel, each at its main-path
@@ -3949,7 +4182,8 @@ def kernel_summary(checks: dict, runs: dict, train: dict,
     arrivals) and ``decide`` at wan2000's (lcmp, every flow, the
     failover's read), with their launches summed over the runs of
     phases run and packet, the groups of phases sweep, packet_sweep and
-    cosim and the workers of phase sweep_mesh; the standalone
+    cosim, the workers of phase sweep_mesh and phase examples'
+    ``torch_routing_sim``; the standalone
     ``cong_update`` and ``lcmp_decide`` entries stand beside them, timed
     at phase switch's shapes (``cong_update`` through the switch's
     launcher, which phase switch runs; ``lcmp_decide``, the TPU
@@ -4059,9 +4293,11 @@ def main() -> int:
     phase_serve(dev)
     phase_launch_train(dev)
     phase_dryrun(dev, info["nvidia_smi"])
+    examples = phase_examples(dev)
     emit(kernel_summary(checks, {**runs, **packet_runs, "cosim": cosim,
-                                 "switch": switch, "sweep_mesh": mesh}, train,
-                        {**sweeps, **fidelity}, dist))
+                                 "switch": switch, "sweep_mesh": mesh,
+                                 "examples/torch_routing_sim": examples},
+                        train, {**sweeps, **fidelity}, dist))
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

@@ -26,8 +26,8 @@ plain versions (``kernels.ref.switch_monitor_ref``,
 Differences from the reference, by design:
 - ``SwitchState.c_cong`` keeps the per-port ``C_cong`` that the monitor
   pass returns with the registers (initially the score of zeroed
-  registers), where the reference recomputes it from the registers in
-  ``candidate_costs``;
+  registers), which ``route_batch`` reads; ``candidate_costs``
+  recomputes it from the registers, as the reference does;
 - on the card the switch is updated in place: ``monitor_tick`` writes the
   registers and ``c_cong``, ``route_batch`` the cache, ``gc_tick`` the
   cache's valid bits and ``set_port_liveness`` the port liveness, so an
@@ -113,6 +113,17 @@ def monitor_tick(sw: SwitchState, queue_cells: torch.Tensor, now_us: int,
     cong, c_cong = ops.switch_monitor(
         sw, queue_cells.to(torch.int32).contiguous(), int(now_us), params.cong)
     return dataclasses.replace(sw, cong=cong, c_cong=c_cong)
+
+
+def candidate_costs(sw: SwitchState, params: SwitchParams = SwitchParams()):
+    """Per-candidate ``(C_path, C_cong, valid)`` (ports -> candidates).
+    ``C_cong`` is recomputed from the registers (``cong.calc_cong_cost``)
+    with plain torch ops on the switch's device, as the reference does,
+    so it also checks the ``c_cong`` that the monitor pass keeps; it is
+    not on ``route_batch``'s path."""
+    c_cong = congmod.calc_cong_cost(sw.cong, sw.tables, params.cong)
+    valid = sw.cand_valid & sw.port_alive[sw.cand_port]
+    return sw.c_path, c_cong[sw.cand_port], valid
 
 
 def route_batch(sw: SwitchState, flow_ids: torch.Tensor, now_us: int,

@@ -13,12 +13,27 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import device as devmod
 
 SCORE_MAX = 255          # all scores are 8-bit quantities (paper: 0-255)
 CELL_BYTES = 1024        # queue accounting granularity (1 cell = 1 KiB)
+
+
+def bytes_to_cells(b, device=devmod.DEFAULT) -> torch.Tensor:
+    """Bytes -> int32 cells (floor). A Python int or float gives a 0-d
+    tensor of ``int(b) // CELL_BYTES`` on ``device``; a tensor or array
+    gives float32 ``b / CELL_BYTES`` truncated to int32, on the tensor's
+    own device (an array's on ``device``), as the reference computes it."""
+    if isinstance(b, (int, float)):
+        return torch.tensor(int(b) // CELL_BYTES, dtype=torch.int32,
+                            device=devmod.resolve(device))
+    if not isinstance(b, torch.Tensor):
+        b = torch.as_tensor(np.asarray(b, np.float32),
+                            device=devmod.resolve(device))
+    return (b.to(torch.float32) / CELL_BYTES).to(torch.int32)
 
 
 def level_score_table(num_levels: int,

@@ -20,6 +20,9 @@ from typing import Dict, Optional
 
 import torch
 
+F32 = torch.float32
+I32 = torch.int32
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
@@ -66,15 +69,13 @@ def input_specs(cfg, cell: ShapeCell, *, device="meta") -> Dict:
         return torch.empty(shape, dtype=dtype, device=device)
 
     if cell.kind in ("train", "prefill"):
-        batch = dict(tokens=sds((B, S), torch.int32),
-                     labels=sds((B, S), torch.int32))
+        batch = dict(tokens=sds((B, S), I32), labels=sds((B, S), I32))
         if cfg.family == "vlm":
-            batch["extra"] = sds((B, cfg.n_patches, cfg.d_model),
-                                 torch.float32)
+            batch["extra"] = sds((B, cfg.n_patches, cfg.d_model), F32)
         if cfg.family == "encdec":
-            batch["extra"] = sds((B, cfg.enc_seq, cfg.d_model), torch.float32)
+            batch["extra"] = sds((B, cfg.enc_seq, cfg.d_model), F32)
         return batch
     # decode: one new token against a seq-sized KV cache
-    return dict(tokens=sds((B, 1), torch.int32),
-                pos=sds((), torch.int32),
+    return dict(tokens=sds((B, 1), I32),
+                pos=sds((), I32),
                 cache=init_cache(cfg, B, S, device=device))

@@ -12,7 +12,11 @@ re-decision ``redecide_tick``), ``redte_tick``, the four CC laws
 (``_cc_update``: dcqcn, dctcp, timely, hpcc) and ``merge_cells``, which
 joins a sweep group's built cells into one world (``netsim.sweep``).
 The packet engine (``netsim.packet``) runs the same planes over its own
-data plane; ``get_engine`` resolves ``SimConfig.engine`` to the module.
+data plane; ``get_engine`` resolves ``SimConfig.engine`` to the module,
+which satisfies the ``Engine`` protocol. ``path_cong_view``'s body lives
+in ``kernels.ref`` (its plain versions read it) and is re-exported here:
+this module imports ``kernels.ops``, whose kernel modules import
+``kernels.ref``, so the body here would make an import cycle.
 ``SimConfig.checks`` arms the physics-invariant sanitizer
 (``netsim.sanitize``) in both engines' steps.
 
@@ -51,6 +55,7 @@ The step performs no host sync (no ``.item()``, no tensor truthiness, no
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -90,10 +95,28 @@ def policy_code(policy: str) -> int:
     return POLICY_CODES[policy]
 
 
-def get_engine(name: str):
+@runtime_checkable
+class Engine(Protocol):
+    """What a simulation engine module provides (``netsim.fluid`` and
+    ``netsim.packet`` satisfy it). The reference's ``run_impl``, the
+    unjitted scan body its sweep vmaps, has no counterpart: ``run`` is
+    the host loop over ``make_step``'s step."""
+    name: str
+
+    def build(self, table: PathTable, flows: FlowSet, cfg: "SimConfig",
+              device=devmod.DEFAULT):
+        """Pack the tables and flows on ``device`` -> (SimArrays, state)."""
+
+    def make_step(self, ar: "SimArrays", cfg: "SimConfig"):
+        """``step(st, t) -> st`` for one ``dt`` (a slot)."""
+
+    def run(self, arrs: "SimArrays", state, cfg: "SimConfig"):
+        """Every step of the run -> the final state."""
+
+
+def get_engine(name: str) -> Engine:
     """The engine module (``netsim.fluid`` or ``netsim.packet``) of a
-    ``SimConfig.engine`` string: each has ``build``, ``make_step`` and
-    ``run``."""
+    ``SimConfig.engine`` string."""
     if name == "fluid":
         from repro_torch.netsim import fluid
         return fluid
@@ -752,13 +775,16 @@ _PATH_ARRAYS = ("path_prop", "path_cap", "path_cap_gbps", "path_len",
 _FLOW_ARRAYS = ("f_arr_us", "f_size", "f_id")
 _INDEX_ARRAYS = {"path_links": "link0", "path_first": "link0",
                  "pair_cand": "path0", "f_pair": "pair0"}
-# SimState fields (a PacketState's too) with a leading flow axis; c_path
-# runs over paths, redte_w over pairs, every other field (and CongState,
-# the packet engine's pfc_pause and hist_pause) over links
-_STATE_FLOW_FIELDS = ("flow_path", "remaining", "rate", "active", "done",
-                     "fct_us", "extra_wait", "rtt_steps", "route_step",
-                     "route_nonce", "last_dec", "cc_alpha", "cc_target",
-                     "prev_delay", "fq", "credit", "delivered", "last_tx")
+# SimState fields (a PacketState's too) with a leading flow axis, in the
+# reference's order; c_path runs over paths, redte_w over pairs, every
+# other field (and CongState, the packet engine's pfc_pause and
+# hist_pause) over links. Merged cells are concatenated, not padded, so
+# the reference's per-field pad values (STATE_PAD) have no use here.
+FLOW_FIELDS = ("flow_path", "remaining", "rate", "active", "done", "fct_us",
+               "extra_wait", "rtt_steps", "route_step", "route_nonce",
+               "last_dec", "cc_alpha", "cc_target", "prev_delay",
+               # packet engine (see packet.PacketState)
+               "fq", "credit", "delivered", "last_tx")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -787,7 +813,7 @@ def _shift(x: torch.Tensor, off: int) -> torch.Tensor:
 
 
 def _state_axis(name: str) -> str:
-    return ("flows" if name in _STATE_FLOW_FIELDS
+    return ("flows" if name in FLOW_FIELDS
             else {"c_path": "paths", "redte_w": "pairs"}.get(name, "links"))
 
 

@@ -38,11 +38,14 @@ import dataclasses
 
 import torch
 
-from repro_torch.netsim import sanitize
-from repro_torch.netsim.engine import (  # noqa: F401  (build & co. re-exported)
-    HIST, SimArrays, SimConfig, SimState, _cc_update, _reroute_dead,
-    attach_link_caps, build, check_slice, ctrl_tick, redecide_tick,
-    redte_tick, step_phases, trip_steps, wants_redecide)
+# the shared engine surface, re-exported as the reference's fluid.py does
+from repro_torch.netsim import engine, sanitize  # noqa: F401
+from repro_torch.netsim.engine import (  # noqa: F401
+    ENGINES, HIST, POLICIES, POLICY_CODES, REDECIDE_POLICIES, SimArrays,
+    SimConfig, SimState, _cc_update, _reroute_dead, attach_link_caps, build,
+    check_slice, ctrl_refresh, ctrl_tick, decide, monitor_tick,
+    path_cong_view, policy_code, redecide_tick, redte_tick, step_phases,
+    trip_steps, wants_redecide)
 
 name = "fluid"
 

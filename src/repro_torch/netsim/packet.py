@@ -60,10 +60,10 @@ import torch
 
 from repro_torch import device as devmod
 from repro_torch.netsim import engine, sanitize
-from repro_torch.netsim.engine import (
+from repro_torch.netsim.engine import (  # noqa: F401  (monitor_tick re-exported)
     HIST, SimArrays, SimConfig, SimState, _cc_update, _reroute_dead,
-    check_slice, ctrl_tick, redecide_tick, redte_tick, step_phases,
-    trip_steps, wants_redecide)
+    check_slice, ctrl_tick, monitor_tick, redecide_tick, redte_tick,
+    step_phases, trip_steps, wants_redecide)
 from repro_torch.netsim.paths import PathTable
 from repro_torch.traffic.gen import FlowSet
 

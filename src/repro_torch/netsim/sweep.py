@@ -41,7 +41,7 @@ several cards would be slower than one merged world on one card.
 
 Not carried over from the reference, since nothing is padded: the
 per-cell padding of the flow tables (``_pad_cell``, the reference
-engine's ``FLOW_FIELDS``/``STATE_PAD``), the chunking of a group by flow
+engine's ``STATE_PAD``), the chunking of a group by flow
 count (``_chunk_by_flows``, ``max_pad_frac``) and the 512-flow
 vmap/map crossover (``_VMAP_MAX_FLOWS``, a measurement of XLA's
 batched-scatter lowering on a CPU), with the reference's
